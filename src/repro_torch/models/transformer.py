@@ -1,0 +1,219 @@
+"""Dense decoder assembly: forward, prefill and decode over the stacked
+period layout — port of ``repro/models/transformer.py:139-454``.
+
+The params and caches keep the reference's layout (layers of whole periods
+stacked along a leading ``n_periods`` axis, the rest unrolled as
+``remainder/r<i>``); the reference's ``lax.scan`` over periods becomes a
+Python loop over slices of the stacked tensors. Only attention + MLP
+layers are ported: MoE, Mamba and cross-attention layers and ``encode``
+raise ``NotImplementedError``. ``impl`` picks the kernels
+(``kernels/ops.py``)."""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import ops
+from repro_torch.models import attention as attn_lib
+from repro_torch.models.config import ATTN, ATTN_LOCAL, MLP, ModelConfig
+from repro_torch.models.layers import embed_apply, mlp_apply, rms_norm
+
+
+def _check_dense(mixer: str, ffn: str) -> None:
+    if mixer not in (ATTN, ATTN_LOCAL) or ffn != MLP:
+        raise NotImplementedError(
+            f"layer kind ({mixer}, {ffn}) is not ported yet: MoE, Mamba and "
+            f"cross-attention come with ROADMAP.md Queue 1 items 6-8")
+
+
+def encode(*args, **kwargs):
+    raise NotImplementedError("encode (encoder-decoder archs) is not ported "
+                              "yet: ROADMAP.md Queue 1 item 8")
+
+
+def _theta_for(cfg: ModelConfig, mixer: str) -> float:
+    if mixer == ATTN and cfg.rope_theta_global:
+        return cfg.rope_theta_global
+    return cfg.rope_theta
+
+
+def _kind(cfg: ModelConfig, j: int) -> tuple[str, str]:
+    return (cfg.layer_pattern[j % len(cfg.layer_pattern)],
+            cfg.ffn_pattern[j % len(cfg.ffn_pattern)])
+
+
+def _apply_layer(lp: dict, cfg: ModelConfig, x: torch.Tensor, mixer: str,
+                 ffn: str, *, positions: torch.Tensor, cache: dict | None,
+                 impl: str) -> tuple[torch.Tensor, dict]:
+    """One residual layer. Returns (x, kv): the prefill K/V when ``cache``
+    is None, else the decode buffer updated in place."""
+    _check_dense(mixer, ffn)
+    h = rms_norm(x, lp["norm1"], cfg.norm_eps)
+    window = cfg.sliding_window if mixer == ATTN_LOCAL else 0
+    o, kv = attn_lib.self_attention(
+        lp["mixer"], cfg, h, positions=positions, window=window,
+        theta=_theta_for(cfg, mixer), cache=cache, impl=impl)
+    x = x + o
+    h2 = rms_norm(x, lp["norm2"], cfg.norm_eps)
+    return x + mlp_apply(lp["ffn"], h2, cfg.act, impl=impl), kv
+
+
+def _slots(cfg: ModelConfig):
+    """(key, i, mixer, ffn) for every layer in model order: ``key`` is
+    ``l<j>`` of period ``i``, or ``r<i>`` of the remainder with ``i``
+    None."""
+    pat = cfg.layer_pattern
+    for i in range(cfg.n_periods):
+        for j in range(len(pat)):
+            yield (f"l{j}", i) + _kind(cfg, j)
+    base = cfg.n_periods * len(pat)
+    for i in range(cfg.n_remainder):
+        yield (f"r{i}", None) + _kind(cfg, base + i)
+
+
+def _layer_params(params: dict, key: str, i: int | None) -> dict:
+    if i is None:
+        return params["remainder"][key]
+    return _period_slice(params["periods"][key], i)
+
+
+def _period_slice(tree: dict, i: int) -> dict:
+    return {k: _period_slice(v, i) if isinstance(v, dict) else v[i]
+            for k, v in tree.items()}
+
+
+def _lm_head(params: dict, cfg: ModelConfig, x: torch.Tensor,
+             impl: str) -> torch.Tensor:
+    if cfg.tie_embeddings:   # x @ embed.T, reading the table in place
+        logits = ops.matmul(x, params["embed"], b_transposed=True, impl=impl)
+    else:
+        logits = ops.matmul(x, params["lm_head"], impl=impl)
+    if cfg.padded_vocab != cfg.vocab:  # mask the padded vocab tail
+        pad = torch.arange(cfg.padded_vocab, device=x.device) >= cfg.vocab
+        logits = logits.masked_fill(pad, attn_lib.NEG_INF)
+    return logits
+
+
+def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+            impl: str = "auto") -> torch.Tensor:
+    """Teacher-forced full-sequence pass -> (B, S, padded_vocab) logits.
+    (The reference also returns the MoE aux loss, always 0 for the dense
+    decoders ported here.)"""
+    B, S = tokens.shape
+    x = embed_apply(params["embed"], tokens, cfg.embed_scale, cfg.d_model)
+    positions = torch.arange(S, dtype=torch.int32, device=x.device)[None, :]
+    for key, i, mixer, ffn in _slots(cfg):
+        x, _ = _apply_layer(_layer_params(params, key, i), cfg, x, mixer, ffn,
+                            positions=positions, cache=None, impl=impl)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return _lm_head(params, cfg, x, impl)
+
+
+# ----------------------------------------------------------------- caches
+
+def _buffer_width(cfg: ModelConfig, mixer: str, S: int) -> int:
+    if mixer == ATTN or not cfg.sliding_window:
+        return S
+    return min(cfg.sliding_window, S)
+
+
+def _empty_buffer(cfg: ModelConfig, B: int, W: int, device) -> dict:
+    hd = cfg.resolved_head_dim
+    return {
+        "k": torch.zeros((B, cfg.n_kv_heads, W, hd), dtype=torch.bfloat16,
+                         device=device),
+        "v": torch.zeros((B, cfg.n_kv_heads, W, hd), dtype=torch.bfloat16,
+                         device=device),
+        "pos": torch.full((B, W), -1, dtype=torch.int32, device=device),
+    }
+
+
+def _assemble(cfg: ModelConfig, t: torch.Tensor, per_layer: dict) -> dict:
+    """Cache tree in the reference's layout from {(key, i): buffer}."""
+    cache: dict = {"t": t}
+    if cfg.n_periods > 0:
+        cache["periods"] = {
+            f"l{j}": {name: torch.stack([per_layer[(f"l{j}", i)][name]
+                                         for i in range(cfg.n_periods)])
+                      for name in ("k", "v", "pos")}
+            for j in range(len(cfg.layer_pattern))}
+    if cfg.n_remainder > 0:
+        cache["remainder"] = {f"r{i}": per_layer[(f"r{i}", None)]
+                              for i in range(cfg.n_remainder)}
+    return cache
+
+
+def init_cache(cfg: ModelConfig, B: int, S: int, device=None) -> dict:
+    """Decode cache sized for a context of S tokens."""
+    bufs = {}
+    for key, i, mixer, ffn in _slots(cfg):
+        _check_dense(mixer, ffn)
+        bufs[(key, i)] = _empty_buffer(cfg, B, _buffer_width(cfg, mixer, S),
+                                       device)
+    return _assemble(cfg, torch.zeros((B,), dtype=torch.int32, device=device),
+                     bufs)
+
+
+def _kv_to_buffer(kv: dict, W: int) -> dict:
+    """Convert full-sequence K/V (B,S,KV,hd) into the rolling decode buffer
+    layout (B,KV,W,hd) + per-slot absolute positions."""
+    k, v, pos = kv["k"], kv["v"], kv["pos"]
+    B, S, KV, hd = k.shape
+    take = min(W, S)
+    slots = torch.arange(S - take, S, device=k.device) % W
+    bk = torch.zeros((B, KV, W, hd), dtype=k.dtype, device=k.device)
+    bv = torch.zeros((B, KV, W, hd), dtype=v.dtype, device=v.device)
+    bpos = torch.full((B, W), -1, dtype=torch.int32, device=k.device)
+    bk[:, :, slots] = k[:, S - take:].transpose(1, 2)
+    bv[:, :, slots] = v[:, S - take:].transpose(1, 2)
+    bpos[:, slots] = pos[:, S - take:]
+    return {"k": bk, "v": bv, "pos": bpos}
+
+
+# ---------------------------------------------------------------- prefill
+
+def prefill_hidden(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+                   cache_len: int | None = None, impl: str = "auto"
+                   ) -> tuple[torch.Tensor, dict]:
+    """``prefill`` up to the final norm: (B,S,d_model) hidden states and
+    the decode cache, so that a caller can run the LM head on the rows it
+    needs."""
+    B, S = tokens.shape
+    CL = cache_len or S
+    x = embed_apply(params["embed"], tokens, cfg.embed_scale, cfg.d_model)
+    positions = torch.arange(S, dtype=torch.int32, device=x.device)[None, :]
+    bufs = {}
+    for key, i, mixer, ffn in _slots(cfg):
+        x, kv = _apply_layer(_layer_params(params, key, i), cfg, x, mixer,
+                             ffn, positions=positions, cache=None, impl=impl)
+        bufs[(key, i)] = _kv_to_buffer(kv, _buffer_width(cfg, mixer, CL))
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    t = torch.full((B,), S, dtype=torch.int32, device=x.device)
+    return x, _assemble(cfg, t, bufs)
+
+
+def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+            cache_len: int | None = None, impl: str = "auto"
+            ) -> tuple[torch.Tensor, dict]:
+    """Process a prompt, returning (logits, decode cache). Without
+    ``cache_len`` every buffer is S wide, as in the reference."""
+    x, cache = prefill_hidden(params, cfg, tokens, cache_len, impl)
+    return _lm_head(params, cfg, x, impl), cache
+
+
+# ----------------------------------------------------------------- decode
+
+def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
+                cache: dict, impl: str = "auto") -> tuple[torch.Tensor, dict]:
+    """One greedy decode step. token: (B, 1) int32. Writes the token's K/V
+    into ``cache``'s buffers in place; the returned cache shares them and
+    carries ``t + 1``."""
+    x = embed_apply(params["embed"], token, cfg.embed_scale, cfg.d_model)
+    positions = cache["t"][:, None]                            # (B,1)
+    for key, i, mixer, ffn in _slots(cfg):
+        x, _ = _apply_layer(_layer_params(params, key, i), cfg, x, mixer,
+                            ffn, positions=positions,
+                            cache=_layer_params(cache, key, i), impl=impl)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    new_cache = dict(cache, t=cache["t"] + 1)
+    return _lm_head(params, cfg, x, impl), new_cache

@@ -1,0 +1,149 @@
+"""The port's serving path (repro_torch.launch) against the reference's
+on the reduced gemma3-1b, and the port's isolation from the JAX package.
+
+Serve: prefill with ``cache_len`` at its default, so every decode buffer
+is ``prompt_len`` wide (the reference's quirk, which the port keeps), then
+decode past ``prompt_len`` teacher-forced on the reference's tokens."""
+
+import ast
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+pytest.importorskip("jax")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.configs import get_reduced as jget_reduced  # noqa: E402
+from repro.data import SyntheticLM as JSyntheticLM  # noqa: E402
+from repro.launch import steps as jsteps  # noqa: E402
+from repro.models import decode_step as jdecode_step  # noqa: E402
+from repro.models import init_params as jinit_params  # noqa: E402
+from repro_torch import bridge  # noqa: E402
+from repro_torch.configs import get_reduced  # noqa: E402
+from repro_torch.launch import serve, steps  # noqa: E402
+from repro_torch.models import transformer as tm  # noqa: E402
+
+ROOT = os.path.join(os.path.dirname(__file__), "..")
+TOL = dict(rtol=2e-2, atol=2e-2)
+MARGIN = 4e-2   # greedy tokens must agree where the reference's top-2 gap exceeds this
+BATCH, PROMPT, DECODE = 2, 5, 8
+
+
+def _np(x):
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(x, np.float32)
+
+
+def _agree_where_decisive(ref_logits, ref_ids, ids):
+    top2 = np.sort(ref_logits, axis=-1)[:, -2:]
+    decisive = (top2[:, 1] - top2[:, 0]) > MARGIN
+    np.testing.assert_array_equal(ids[decisive], ref_ids[decisive])
+
+
+def test_prompts_match_reference():
+    cfg = get_reduced("gemma3-1b")
+    want = JSyntheticLM(vocab=cfg.vocab, seed=1).batch(0, 0, 3, 7)["tokens"]
+    np.testing.assert_array_equal(serve.prompts(cfg, 3, 7, "cpu").numpy(),
+                                  want)
+
+
+def test_serve_steps_match_reference_past_prompt_len():
+    jcfg = jget_reduced("gemma3-1b")
+    cfg = get_reduced("gemma3-1b")
+    params_j = jinit_params(jcfg, jax.random.PRNGKey(0))
+    params_t = bridge.params_from_numpy(jax.tree.map(np.asarray, params_j),
+                                        cfg, device="cpu")
+    prompts = serve.prompts(cfg, BATCH, PROMPT, "cpu")
+
+    ref_prefill = jax.jit(jsteps.make_prefill_step(jcfg))
+    ref_serve = jax.jit(jsteps.make_serve_step(jcfg))
+    ref_decode = jax.jit(lambda p, t, c: jdecode_step(p, jcfg, t, c))
+    port_serve = steps.make_serve_step(cfg)
+
+    lj, cj = ref_prefill(params_j, jnp.asarray(prompts.numpy()))
+    lt, ct = steps.make_prefill_step(cfg)(params_t, prompts)
+    assert lt.shape == lj.shape == (BATCH, 1, cfg.vocab)
+    np.testing.assert_allclose(_np(lt), _np(lj), **TOL)
+    # the quirk: every layer's buffer is prompt_len wide, globals included
+    for layer in ct["periods"].values():
+        assert layer["k"].shape[3] == PROMPT
+    for j in range(len(cfg.layer_pattern)):
+        assert cj["periods"][f"l{j}"]["k"].shape[3] == PROMPT
+
+    tok_j = jnp.argmax(lj[:, -1], axis=-1).astype(jnp.int32)[:, None]
+    _agree_where_decisive(_np(lj[:, -1]), np.asarray(tok_j[:, 0]),
+                          _np(lt[:, -1]).argmax(-1))
+    for _ in range(DECODE):       # positions PROMPT .. PROMPT+DECODE-1 wrap
+        tok_t = torch.tensor(np.asarray(tok_j))
+        logits_j, cj_next = ref_decode(params_j, tok_j, cj)
+        logits_t, ct_next = tm.decode_step(params_t, cfg, tok_t, ct)
+        np.testing.assert_allclose(_np(logits_t), _np(logits_j), **TOL)
+        # serve_step from the same cache: rewrites the same slot, idempotent
+        ids_j, _ = ref_serve(params_j, tok_j, cj)
+        ids_t, _ = port_serve(params_t, tok_t, ct)
+        _agree_where_decisive(_np(logits_j[:, 0]), np.asarray(ids_j[:, 0]),
+                              ids_t[:, 0].numpy())
+        tok_j, cj, ct = ids_j, cj_next, ct_next
+    assert ct["t"].tolist() == [PROMPT + DECODE] * BATCH
+
+
+def test_main_runs_on_cpu(capsys):
+    serve.main(["--reduced", "--device", "cpu", "--batch", "2",
+                "--prompt-len", "4", "--decode", "3"])
+    out = capsys.readouterr().out
+    assert "decoded 3 tokens" in out and "on cpu" in out
+
+
+# ------------------------------------------------------------- no fallback
+
+def test_entry_points_raise_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_reduced("gemma3-1b")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        bridge.init_params(cfg, seed=0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--reduced"])
+
+
+# --------------------------------------------------------------- isolation
+
+def test_port_imports_no_jax_and_nothing_of_repro():
+    code = ("import sys, repro_torch.launch.serve, repro_torch.bridge\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro', 'ml_dtypes'))\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    res = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
+def _port_sources():
+    base = os.path.join(ROOT, "src", "repro_torch")
+    for d, _, files in os.walk(base):
+        yield from (os.path.join(d, f) for f in files if f.endswith(".py"))
+    yield os.path.join(ROOT, "chip_smoke.py")
+
+
+def test_port_sources_import_no_jax_or_repro():
+    def banned(mod):
+        top = (mod or "").split(".")[0]
+        return top in ("jax", "jaxlib", "ml_dtypes", "repro")
+    found = []
+    for path in _port_sources():
+        with open(path, encoding="utf-8") as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                found += [(path, a.name) for a in node.names if banned(a.name)]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0 \
+                    and banned(node.module):
+                found.append((path, node.module))
+    assert not found, found
