@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
 
-1. Prints the card's name and power limit, then builds the CUDA kernels
-   from ``src/repro_torch/kernels/csrc`` with nvcc (sm_90a).
+1. Prints the card's name and power limit, then builds the three CUDA
+   kernels from ``src/repro_torch/kernels/csrc`` with nvcc (sm_90a), one
+   nvcc process each, all at once.
 2. Holds the matmul kernel against its plain version at every shape the
    gemma3-1b serving path gives it (decode M=4, prefill M=4096), plus
    ragged and fp32 cases.
@@ -13,9 +14,17 @@
    shapes (GQA 4:1, D=256, window 512 and global).
 4. Serves full-width gemma3-1b (random weights from seed 0): batch 4,
    1024-token prompts, 32 greedy decode tokens, through
-   ``repro_torch.launch.serve``; checks that both kernels were launched and
-   that the plain path (``impl="torch"``) gives the same logits.
-5. Prints one JSON line of kernel numbers, the nvidia-smi line, and last
+   ``repro_torch.launch.serve``; checks that both of its kernels were
+   launched, that the kernel path is no farther from the model in fp32
+   than the plain path (``impl="torch"``), and the reduced model on the
+   card against the CPU. Then frees all of it.
+5. Holds the selective-scan kernel (y and the final state) against its
+   plain version: the Pallas kernel's cases, ragged S, D = 640, N of 4, 8
+   and 16, and the falcon-mamba prefill shape (4, 1024, 8192, 16) with x
+   in bf16; and the matmul kernel at every falcon-mamba shape.
+6. Serves full-width falcon-mamba-7b the same way (64 Mamba layers, 14.6
+   GB of bf16 weights), with the same checks for matmul and mamba_scan.
+7. Prints one JSON line of kernel numbers, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
 Every time is the median over repeats, timed with CUDA events; matmul
@@ -26,6 +35,7 @@ read cold, as in a decode step. Per-case detail goes to
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -42,12 +52,26 @@ import torch.nn.functional as F  # noqa: E402
 
 HBM_BYTES_S = 3.35e12                              # H100 SXM
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense; fp32 off the tensor cores
+# exponentials per second: 132 SMs x 16 per clock on the special-function
+# units x 1.98 GHz, the H100 SXM's top boost clock
+EXP_RATE = 132 * 16 * 1.98e9
 L2_BYTES = 50 * 2 ** 20
 BATCH, PROMPT, DECODE = 4, 1024, 32
+# a tolerance's atol_rel is an atol as a fraction of the largest |want| of
+# the tensor; where it has atol too, the smaller of the two holds
 MM_TOL = {torch.bfloat16: dict(rtol=1e-2, atol=1e-2),   # one bf16 rounding of the output
           torch.float32: dict(rtol=1e-4, atol=1e-4)}
 FA_TOL = dict(rtol=2e-2, atol=2e-2)    # P rounded to bf16 against another running max
-MODEL_TOL = dict(rtol=2e-2, atol=2e-2)  # the repo's bf16 model tolerance (test_arch_smoke)
+# the scan's y and state are small at the model's init (|y| ~ 1e-2), so
+# their limits follow the tensor: rtol 8e-3 is one bf16 rounding of y
+SCAN_TOL = {torch.float32: dict(rtol=2e-3, atol=2e-3, atol_rel=1e-3),  # test_kernels.py's
+            torch.bfloat16: dict(rtol=8e-3, atol_rel=1e-3)}
+H_TOL = dict(rtol=2e-3, atol=2e-3, atol_rel=1e-3)   # the fp32 state, fp32 in both versions
+MODEL_TOL = dict(rtol=2e-2, atol=2e-2, atol_rel=2e-2)  # the repo's bf16 model tolerance (test_arch_smoke)
+# gains on the init of the reduced falcon-mamba's mixers, with dt_bias 0, so
+# that its Mamba layers move the logits it is checked by (as
+# tests/test_torch_mamba.py's LOUD_MODEL)
+LOUD_MODEL = {"in_proj": 3.0, "conv_w": 3.0, "x_proj": 3.0, "out_proj": 1.0}
 PATH_RATIO = 1.5     # see compare_paths
 MARGIN = 0.25        # a top-2 logit gap that bf16 noise at full width does not close
 
@@ -88,21 +112,51 @@ def time_ms(fn, arg_sets, reps: int = 10) -> float:
     return statistics.median(times)
 
 
-def bound_ms(nbytes: float, flops: float, dtype) -> tuple[float, str]:
-    t_bytes, t_ops = nbytes / HBM_BYTES_S, flops / PEAK_FLOPS[dtype]
+def bound_ms(nbytes: float, flops: float, dtype, exps: float = 0.0
+             ) -> tuple[float, str]:
+    """The least time for the work: bytes over the memory rate, or the
+    operations (flops at the dtype's peak, exponentials at EXP_RATE)."""
+    t_bytes = nbytes / HBM_BYTES_S
+    t_ops = max(flops / PEAK_FLOPS[dtype], exps / EXP_RATE)
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
-def check_close(name: str, got, want, tol) -> float:
-    """Elementwise |got - want| <= atol + rtol |want|; returns max |err|."""
+def free_memory() -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def atol_of(want, tol) -> float:
+    atol = tol.get("atol", math.inf)
+    if "atol_rel" in tol:
+        atol = min(atol, tol["atol_rel"] * want.float().abs().max().item())
+    return atol
+
+
+def within(got, want, tol) -> bool:
+    """Elementwise |got - want| <= atol + rtol |want|."""
     err = (got.float() - want.float()).abs()
+    return bool((err <= atol_of(want, tol) + tol["rtol"] * want.float().abs()).all())
+
+
+def check_close(name: str, got, want, tol) -> float:
+    """Raises unless ``got`` is finite and within ``tol`` of ``want``;
+    returns max |err|."""
     if not torch.isfinite(got.float()).all():
         raise AssertionError(f"{name}: non-finite output")
-    limit = tol["atol"] + tol["rtol"] * want.float().abs()
-    if (err > limit).any():
-        raise AssertionError(f"{name}: max |err| {err.max().item():.3e} over "
-                             f"tolerance rtol={tol['rtol']} atol={tol['atol']}")
-    return err.max().item()
+    err = (got.float() - want.float()).abs().max().item()
+    if not within(got, want, tol):
+        raise AssertionError(f"{name}: max |err| {err:.3e} over tolerance "
+                             f"rtol={tol['rtol']} atol={atol_of(want, tol):.3e}")
+    return err
+
+
+def check_discerns(name: str, want, tol) -> None:
+    """The tolerance must reject an output of zeros and one 10% off."""
+    for bad in (torch.zeros_like(want), want * 1.1):
+        if within(bad, want, tol):
+            raise AssertionError(f"{name}: tolerance {tol} passes a zeroed or "
+                                 f"10%-off output")
 
 
 # ------------------------------------------------------------------ matmul
@@ -137,32 +191,48 @@ def matmul_case(M, K, N, bt, dtype, tag):
     return row
 
 
-def matmul_phase(cfg):
-    d, f, hd = cfg.d_model, cfg.d_ff, cfg.resolved_head_dim
+def projections(cfg) -> list[tuple[str, int, int, int]]:
+    """(tag, K, N, calls per layer) of every matmul of one layer."""
+    d = cfg.d_model
+    if cfg.attention_free:
+        di, dtr = cfg.d_inner, cfg.resolved_dt_rank
+        return [("in_proj", d, 2 * di, 1),
+                ("x_proj", di, dtr + 2 * cfg.ssm_state, 1),
+                ("dt_proj", dtr, di, 1), ("out_proj", di, d, 1)]
+    f, hd = cfg.d_ff, cfg.resolved_head_dim
     nq, nkv = cfg.n_heads * hd, cfg.n_kv_heads * hd
-    per_layer = [("wq", d, nq, 1), ("wk,wv", d, nkv, 2),
-                 ("wi_gate,wi_up", d, f, 2), ("attn wo", nq, d, 1),
-                 ("mlp wo", f, d, 1)]
+    return [("wq", d, nq, 1), ("wk,wv", d, nkv, 2),
+            ("wi_gate,wi_up", d, f, 2), ("attn wo", nq, d, 1),
+            ("mlp wo", f, d, 1)]
+
+
+def matmul_phase(cfg):
+    """Every matmul shape of ``cfg``'s serving path, weighted by its calls
+    per decode token and per prefill; the LM head runs on the last
+    position only, in prefill as in decode."""
     phases = {"decode": [], "prefill": []}
     rows = []
     for phase, M in (("decode", BATCH), ("prefill", BATCH * PROMPT)):
-        for tag, K, N, per in per_layer:
+        for tag, K, N, per in projections(cfg):
             r = matmul_case(M, K, N, False, torch.bfloat16, tag)
             rows.append(r)
             phases[phase].append((r, per * cfg.n_layers))
-        # the head runs on the last position only, in prefill as in decode
-        r = matmul_case(BATCH, d, cfg.padded_vocab, True, torch.bfloat16,
-                        "lm head")
+        r = matmul_case(BATCH, cfg.d_model, cfg.padded_vocab,
+                        cfg.tie_embeddings, torch.bfloat16, "lm head")
         rows.append(r)
         phases[phase].append((r, 1))
-    for M, K, N, bt, dt in ((37, 100, 50, False, torch.bfloat16),
-                            (37, 100, 50, True, torch.bfloat16),
-                            (4, 1000, 333, True, torch.bfloat16),
-                            (130, 77, 333, False, torch.float32),
-                            (130, 77, 333, True, torch.float32),
-                            (512, 1152, 1024, False, torch.float32)):
-        rows.append(matmul_case(M, K, N, bt, dt, "ragged" if M != 512 else "fp32"))
     return rows, phases
+
+
+def matmul_edge_cases():
+    """Shapes no config gives the kernel: ragged M, N and K, and fp32."""
+    return [matmul_case(M, K, N, bt, dt, "ragged" if M != 512 else "fp32")
+            for M, K, N, bt, dt in ((37, 100, 50, False, torch.bfloat16),
+                                    (37, 100, 50, True, torch.bfloat16),
+                                    (4, 1000, 333, True, torch.bfloat16),
+                                    (130, 77, 333, False, torch.float32),
+                                    (130, 77, 333, True, torch.float32),
+                                    (512, 1152, 1024, False, torch.float32))]
 
 
 # --------------------------------------------------------- flash attention
@@ -237,44 +307,134 @@ def flash_phase(cfg):
     return rows, prefill
 
 
+# -------------------------------------------------------------- mamba scan
+
+def scan_case(Bt, S, D, N, x_dtype, tag, model_like=False):
+    """One selective-scan case. The Pallas tests' inputs (dt = softplus of
+    a normal, A = -exp(0.3 normal), B, C, x normal), or with
+    ``model_like`` what the falcon-mamba block hands over: A = -(1..N),
+    dt = softplus(0.5 normal - 4.6), B and C at 0.3, x a silu output."""
+    from repro_torch.kernels import mamba_scan as kscan
+    from repro_torch.kernels import ref
+
+    g = torch.Generator(device="cuda").manual_seed(S * 13 + D + N)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device="cuda")
+    if model_like:
+        dt = F.softplus(0.5 * randn(Bt, S, D) - 4.6)
+        A = -torch.arange(1, N + 1, dtype=torch.float32,
+                          device="cuda").expand(D, N).contiguous()
+        B, C = 0.3 * randn(Bt, S, N), 0.3 * randn(Bt, S, N)
+        x = F.silu(randn(Bt, S, D)).to(x_dtype)
+    else:
+        dt = F.softplus(randn(Bt, S, D))
+        A = -torch.exp(0.3 * randn(D, N))
+        B, C = randn(Bt, S, N), randn(Bt, S, N)
+        x = randn(Bt, S, D).to(x_dtype)
+    args = (dt, A, B, C, x)
+    y, h = kscan.mamba_scan(*args)
+    y_want, h_want = ref.mamba_scan_ref(*args)
+    torch.cuda.synchronize()
+    err = check_close(f"mamba_scan {tag} y", y, y_want, SCAN_TOL[x_dtype])
+    err_h = check_close(f"mamba_scan {tag} h_last", h, h_want, H_TOL)
+    check_discerns(f"mamba_scan {tag} y", y_want, SCAN_TOL[x_dtype])
+    check_discerns(f"mamba_scan {tag} h_last", h_want, H_TOL)
+    y_abs, h_abs = y_want.float().abs(), h_want.abs()
+    ms = time_ms(lambda: kscan.mamba_scan(*args), [()])
+    plain = time_ms(lambda: ref.mamba_scan_ref(*args), [()])
+    es = x.element_size()
+    nbytes = (Bt * S * D * (4 + 2 * es) + 2 * Bt * S * N * 4 + D * N * 4
+              + Bt * D * N * 4)
+    # per state element and step: dt*A, exp, h FMA, y FMA; the exp bounds
+    bnd, by = bound_ms(nbytes, 6.0 * Bt * S * D * N, torch.float32,
+                       exps=Bt * S * D * N)
+    row = dict(tag=tag, Bt=Bt, S=S, D=D, N=N,
+               x_dtype=str(x_dtype).replace("torch.", ""), max_abs_err=err,
+               h_last_max_abs_err=err_h, y_abs_mean=y_abs.mean().item(),
+               y_abs_max=y_abs.max().item(), h_abs_mean=h_abs.mean().item(),
+               h_abs_max=h_abs.max().item(), ms=ms, plain_ms=plain,
+               library_ms=None, bound_ms=bnd, bound_by=by,
+               bytes_bound_ms=nbytes / HBM_BYTES_S * 1e3,
+               exp_bound_ms=Bt * S * D * N / EXP_RATE * 1e3)
+    print(f"mamba_scan {tag:>8} ({Bt},{S},{D},{N}) x {row['x_dtype']} "
+          f"err y {err:.2e} (|y| mean {row['y_abs_mean']:.2e} max "
+          f"{row['y_abs_max']:.2e}) h {err_h:.2e} (|h| mean "
+          f"{row['h_abs_mean']:.2e}) kernel {ms:.4f} ms  plain "
+          f"{plain:.4f}  bound {bnd:.4f} ({by}; bytes "
+          f"{row['bytes_bound_ms']:.4f}, exp {row['exp_bound_ms']:.4f})",
+          flush=True)
+    return row
+
+
+def scan_phase(cfg):
+    rows = []
+    for Bt, S, D, N in ((1, 128, 512, 16), (2, 256, 1024, 16),
+                        (2, 128, 640, 8)):           # test_kernels.py:101
+        rows.append(scan_case(Bt, S, D, N, torch.float32, "pallas"))
+    for Bt, S, D, N in ((1, 1000, 512, 16), (2, 37, 640, 4),
+                        (3, 200, 384, 8)):
+        rows.append(scan_case(Bt, S, D, N, torch.float32, "ragged"))
+    rows.append(scan_case(2, 24, 128, 4, torch.bfloat16, "reduced",
+                          model_like=True))
+    model = scan_case(BATCH, PROMPT, cfg.d_inner, cfg.ssm_state,
+                      torch.bfloat16, "model", model_like=True)
+    rows.append(model)
+    return rows, [(model, cfg.n_layers)]
+
+
 # ------------------------------------------------------------------- serve
+
+def counters(cfg) -> dict:
+    """The launch-counting kernel modules that ``cfg``'s main path runs."""
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import mamba_scan as kscan
+    from repro_torch.kernels import matmul as kmm
+
+    if cfg.attention_free:
+        return {"matmul": kmm, "mamba_scan": kscan}
+    return {"matmul": kmm, "flash_attention": kfa}
+
 
 def serve_phase(cfg):
     from repro_torch.bridge import init_params, leaf_sizes
-    from repro_torch.kernels import flash_attention as kfa
-    from repro_torch.kernels import matmul as kmm
     from repro_torch.launch import serve
 
+    mods = counters(cfg)
     t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
     params = init_params(cfg, seed=0, device="cuda")
     toks = serve.prompts(cfg, BATCH, PROMPT, "cuda")
     torch.cuda.synchronize()
-    print(f"serve: init {sum(n for _, n in leaf_sizes(params)) / 1e9:.3f} GB "
-          f"of bf16 params in {time.perf_counter() - t0:.1f} s", flush=True)
+    weight_bytes = sum(n for _, n in leaf_sizes(params))
+    print(f"serve {cfg.name}: init {weight_bytes / 1e9:.3f} GB of params in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     with torch.inference_mode():
         tok, _, cache, _ = serve.run_prefill(cfg, params, toks[:, :128])  # warm-up
         serve.run_decode(cfg, params, tok, cache, 2)
         del cache
-        kmm.launches = kfa.launches = 0
+        for m in mods.values():
+            m.launches = 0
         tok, logits, cache, pre_ms = serve.run_prefill(cfg, params, toks)
-        pre_counts = (kmm.launches, kfa.launches)
+        pre_counts = {k: m.launches for k, m in mods.items()}
         decoded, cache, dec_ms = serve.run_decode(cfg, params, tok, cache, DECODE)
-        counts = (kmm.launches, kfa.launches)
+        counts = {k: m.launches for k, m in mods.items()}
         seq = torch.cat([tok] + decoded, dim=1)
         assert logits.shape == (BATCH, 1, cfg.padded_vocab), logits.shape
         assert torch.isfinite(logits.float()).all(), "non-finite prefill logits"
         assert seq.shape == (BATCH, DECODE + 1)
         assert int(seq.min()) >= 0 and int(seq.max()) < cfg.vocab
-        if min(counts) == 0:
-            raise AssertionError(f"a kernel was not launched on the main path: "
-                                 f"matmul {counts[0]}, flash {counts[1]}")
+        if min(counts.values()) == 0:
+            raise AssertionError(f"a kernel was not launched on the main "
+                                 f"path: {counts}")
         tok_s = BATCH * DECODE / (dec_ms / 1e3)
-        print(f"serve: prefill {BATCH}x{PROMPT} in {pre_ms:.2f} ms; decoded "
-              f"{DECODE} tokens in {dec_ms:.2f} ms ({tok_s:.1f} tok/s, "
-              f"{dec_ms / DECODE:.3f} ms/token); launches: matmul {counts[0]} "
-              f"(prefill {pre_counts[0]}), flash {counts[1]} "
-              f"(prefill {pre_counts[1]})", flush=True)
-        print("serve: first request continuation:", seq[0].tolist(), flush=True)
+        print(f"serve {cfg.name}: prefill {BATCH}x{PROMPT} in {pre_ms:.2f} ms; "
+              f"decoded {DECODE} tokens in {dec_ms:.2f} ms ({tok_s:.1f} tok/s, "
+              f"{dec_ms / DECODE:.3f} ms/token); launches "
+              + ", ".join(f"{k} {counts[k]} (prefill {pre_counts[k]})"
+                          for k in counts), flush=True)
+        print(f"serve {cfg.name}: first request continuation:",
+              seq[0].tolist(), flush=True)
 
         # where the time goes: device-busy time under the profiler
         prof_pre = profile_device(lambda: serve.run_prefill(cfg, params, toks))
@@ -284,23 +444,27 @@ def serve_phase(cfg):
         for phase, (busy, wall, top), eager in (
                 ("prefill", prof_pre, pre_ms), ("decode x4", prof_dec,
                                                 4 * dec_ms / DECODE)):
-            print(f"profile {phase}: device busy {busy:.2f} ms of {eager:.2f} ms "
-                  f"unprofiled ({wall:.2f} ms profiled): idle share "
-                  f"{1 - busy / eager:.3f}", flush=True)
+            print(f"profile {cfg.name} {phase}: device busy {busy:.2f} ms of "
+                  f"{eager:.2f} ms unprofiled ({wall:.2f} ms profiled): idle "
+                  f"share {1 - busy / eager:.3f}", flush=True)
             for name, ms, n in top:
                 print(f"    {ms:9.3f} ms  {n:5d}x  {name}", flush=True)
 
         paths = compare_paths(cfg, params, toks)
         pre_ms_p = paths.pop("plain_prefill_ms")
-        reduced = reduced_vs_cpu()
-    weight_bytes = sum(n for _, n in leaf_sizes(params))
-    return dict(prefill_ms=pre_ms, decode_ms=dec_ms, tok_s=tok_s,
+        peak = torch.cuda.max_memory_allocated()
+        del params
+        free_memory()
+        reduced = reduced_vs_cpu(cfg.name)
+    return dict(arch=cfg.name, weight_bytes=weight_bytes, prefill_ms=pre_ms,
+                decode_ms=dec_ms, tok_s=tok_s,
                 decode_ms_per_token=dec_ms / DECODE,
                 decode_weight_bound_ms_per_token=weight_bytes / HBM_BYTES_S * 1e3,
                 profile_prefill=prof_pre, profile_decode_4_tokens=prof_dec,
                 plain_prefill_ms=pre_ms_p, launches=counts,
-                prefill_launches=pre_counts, paths_vs_fp32=paths,
-                reduced_vs_cpu=reduced, continuation=seq[0].tolist())
+                prefill_launches=pre_counts, peak_memory_bytes=peak,
+                paths_vs_fp32=paths, reduced_vs_cpu=reduced,
+                continuation=seq[0].tolist())
 
 
 def rel_l2(a, b) -> float:
@@ -313,18 +477,19 @@ def compare_paths(cfg, params, toks, steps: int = 4) -> dict:
     (impl="torch"), both bf16, against the same model run in fp32 on the
     plain path. Prefill's last-position logits, then ``steps`` decode
     steps teacher-forced on the fp32 path's greedy tokens, each path on its
-    own cache. Both bf16 paths round the residual stream after each of 52
-    sublayers, at different points (fp32 scores in the flash kernel, bf16
-    in the plain path's attention; other fp32 sum orders), so at full width
-    neither is within an elementwise 2e-2 of the other. The check: the
-    kernel path is no farther from fp32 than the plain path, relative L2
-    distance within PATH_RATIO of it at every step, and both bf16 paths
-    pick fp32's greedy token wherever its top-2 gap exceeds MARGIN."""
+    own cache. Both bf16 paths round the residual stream after every
+    sublayer, at different points (for gemma3-1b fp32 scores in the flash
+    kernel and bf16 in the plain path's attention; other fp32 sum orders
+    everywhere), so at full width neither is within an elementwise 2e-2 of
+    the other. The check: the kernel path is no farther from fp32 than the
+    plain path, relative L2 distance within PATH_RATIO of it at every step,
+    and both bf16 paths pick fp32's greedy token wherever its top-2 gap
+    exceeds MARGIN."""
     from repro_torch.bridge import tree_map
     from repro_torch.launch import serve
     from repro_torch.models import transformer as tm
 
-    params32 = tree_map(lambda x: x.float(), params)
+    params32 = tree_map(lambda x: x.float(), params)   # 4 bytes a weight
     setups = {"fp32": (params32, "torch"), "plain": (params, "torch"),
               "kernel": (params, "auto")}
     logits, caches, out = {}, {}, {"steps": []}
@@ -365,19 +530,25 @@ def compare_paths(cfg, params, toks, steps: int = 4) -> dict:
     return out
 
 
-def reduced_vs_cpu() -> dict:
-    """Small input, the repo's own tolerance: reduced gemma3-1b (head_dim
-    16, window 8) served on the card through the kernels against the plain
-    path on the CPU, same params and prompts; prefill logits and 8 decode
-    steps past prompt_len, teacher-forced on the CPU's tokens, elementwise
-    within MODEL_TOL."""
+def reduced_vs_cpu(name: str) -> dict:
+    """Small input, the repo's own tolerance: the reduced config of
+    ``name`` served on the card through the kernels against the plain path
+    on the CPU, same params and prompts; prefill logits and 8 decode steps
+    past prompt_len, teacher-forced on the CPU's tokens, elementwise
+    within MODEL_TOL. Mamba mixers get the LOUD_MODEL gains: at their init
+    they leave the logits unchanged within any tolerance."""
     from repro_torch.bridge import init_params, tree_map
     from repro_torch.configs import get_reduced
     from repro_torch.launch import serve
     from repro_torch.models import transformer as tm
 
-    cfg = get_reduced("gemma3-1b")
+    cfg = get_reduced(name)
     p_cpu = init_params(cfg, seed=0, device="cpu")
+    if cfg.attention_free:
+        mixer = p_cpu["periods"]["l0"]["mixer"]
+        for leaf, gain in LOUD_MODEL.items():
+            mixer[leaf].mul_(gain)
+        mixer["dt_bias"].zero_()
     p_gpu = tree_map(lambda x: x.to("cuda"), p_cpu)
     toks = serve.prompts(cfg, 2, 24, "cpu")
     tok, lc, cache_c, _ = serve.run_prefill(cfg, p_cpu, toks)
@@ -388,7 +559,7 @@ def reduced_vs_cpu() -> dict:
         lg, cache_g = tm.decode_step(p_gpu, cfg, tok.to("cuda"), cache_g)
         errs.append(check_close("reduced decode", lg.cpu(), lc, MODEL_TOL))
         tok = lc[:, -1].argmax(dim=-1).int()[:, None]
-    print(f"reduced gemma3-1b, card kernels vs CPU plain: max |err| prefill "
+    print(f"reduced {name}, card kernels vs CPU plain: max |err| prefill "
           f"{errs[0]:.3e}, 8 decode steps {max(errs[1:]):.3e} "
           f"(tolerance {MODEL_TOL})", flush=True)
     return dict(prefill_max_abs_err=errs[0], decode_max_abs_err=max(errs[1:]))
@@ -425,7 +596,8 @@ def summarize(name, weighted, launches, source, replaces):
         plain_ms=sum(r["plain_ms"] * n for r, n in weighted),
         bound_ms=sum(r["bound_ms"] * n for r, n in weighted),
         bound_by=max(((r["bound_ms"] * n, r["bound_by"]) for r, n in weighted))[1],
-        library_ms=sum(r["library_ms"] * n for r, n in weighted))
+        library_ms=None if any(r["library_ms"] is None for r, _ in weighted)
+        else sum(r["library_ms"] * n for r, n in weighted))
 
 
 def main() -> int:
@@ -446,29 +618,57 @@ def main() -> int:
     print(f"build: {out} in {time.perf_counter() - t0:.1f} s", flush=True)
     print(build.ptxas_report(), flush=True)
 
-    cfg = get_config("gemma3-1b")
-    mm_rows, mm_phases = matmul_phase(cfg)
-    fa_rows, fa_prefill = flash_phase(cfg)
-    served = serve_phase(cfg)
+    t_run = time.perf_counter()
+    gemma = get_config("gemma3-1b")
+    mm_rows, mm_phases = matmul_phase(gemma)
+    mm_rows += matmul_edge_cases()
+    fa_rows, fa_prefill = flash_phase(gemma)
+    served = serve_phase(gemma)
+    free_memory()
+    print(f"gemma3-1b phases done at {time.perf_counter() - t_run:.1f} s; "
+          f"{torch.cuda.memory_allocated() / 1e9:.3f} GB still allocated",
+          flush=True)
+
+    mamba = get_config("falcon-mamba-7b")
+    scan_rows, scan_prefill = scan_phase(mamba)
+    mm_rows_m, mm_phases_m = matmul_phase(mamba)
+    served_m = serve_phase(mamba)
+    print(f"falcon-mamba-7b phases done at {time.perf_counter() - t_run:.1f} s",
+          flush=True)
 
     mm_src = "src/repro_torch/kernels/csrc/matmul.cu"
     fa_src = "src/repro_torch/kernels/csrc/flash_attention.cu"
+    scan_src = "src/repro_torch/kernels/csrc/mamba_scan.cu"
     mm_rep = "src/repro/kernels/matmul.py:24"
     fa_rep = "src/repro/kernels/flash_attention.py:23"
-    n_mm, n_fa = served["launches"]
-    n_mm_pre, n_fa_pre = served["prefill_launches"]
+    scan_rep = "src/repro/kernels/mamba_scan.py:27"
+
+    def split(served, name):   # (decode launches, prefill launches)
+        pre = served["prefill_launches"][name]
+        return served["launches"][name] - pre, pre
+
+    mm_dec, mm_pre = split(served, "matmul")
+    mmm_dec, mmm_pre = split(served_m, "matmul")
     kernels = [
-        summarize("matmul@decode", mm_phases["decode"], n_mm - n_mm_pre,
-                  mm_src, mm_rep),
-        summarize("matmul@prefill", mm_phases["prefill"], n_mm_pre, mm_src,
+        summarize("matmul@decode", mm_phases["decode"], mm_dec, mm_src, mm_rep),
+        summarize("matmul@prefill", mm_phases["prefill"], mm_pre, mm_src,
                   mm_rep),
-        summarize("flash_attention@prefill", fa_prefill, n_fa, fa_src, fa_rep),
+        summarize("flash_attention@prefill", fa_prefill,
+                  served["launches"]["flash_attention"], fa_src, fa_rep),
+        summarize("mamba_scan@prefill", scan_prefill,
+                  served_m["launches"]["mamba_scan"], scan_src, scan_rep),
+        summarize("matmul@mamba-decode", mm_phases_m["decode"], mmm_dec,
+                  mm_src, mm_rep),
+        summarize("matmul@mamba-prefill", mm_phases_m["prefill"], mmm_pre,
+                  mm_src, mm_rep),
     ]
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(dict(card=card, torch=torch.__version__, matmul=mm_rows,
-                       flash_attention=fa_rows, serve=served, kernels=kernels),
-                  f, indent=1)
+                       flash_attention=fa_rows, serve=served,
+                       mamba_scan=scan_rows, matmul_mamba=mm_rows_m,
+                       serve_mamba=served_m, kernels=kernels,
+                       seconds=time.perf_counter() - t_run), f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(smi())
     print(json.dumps({"ok": True, "device": {

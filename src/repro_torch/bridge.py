@@ -19,41 +19,59 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.models.config import ATTN, ATTN_LOCAL, MLP, ModelConfig
+from repro_torch.models.config import (ATTN, ATTN_LOCAL, MAMBA, MLP, NONE,
+                                      ModelConfig)
 
 Shape = tuple[int, ...]
+BF16, FP32 = torch.bfloat16, torch.float32
+
+
+def _mamba_shapes(cfg: ModelConfig) -> dict:
+    """``mamba_init``'s leaves (``repro/models/mamba.py:27-43``)."""
+    d, di, ns = cfg.d_model, cfg.d_inner, cfg.ssm_state
+    dtr = cfg.resolved_dt_rank
+    return {"in_proj": ((d, 2 * di), BF16),
+            "conv_w": ((cfg.ssm_conv, di), BF16), "conv_b": ((di,), BF16),
+            "x_proj": ((di, dtr + 2 * ns), BF16), "dt_proj": ((dtr, di), BF16),
+            "dt_bias": ((di,), FP32), "A_log": ((di, ns), FP32),
+            "D": ((di,), FP32), "out_proj": ((di, d), BF16)}
 
 
 def _layer_shapes(cfg: ModelConfig, mixer: str, ffn: str) -> dict:
+    d = cfg.d_model
+    if mixer == MAMBA and ffn == NONE:
+        return {"norm1": ((d,), BF16), "mixer": _mamba_shapes(cfg)}
     if mixer not in (ATTN, ATTN_LOCAL) or ffn != MLP:
         raise NotImplementedError(
             f"layer kind ({mixer}, {ffn}) is not ported yet: only dense "
-            f"attention + MLP layers (ROADMAP.md Queue 1 items 6-8)")
-    d, hd, f = cfg.d_model, cfg.resolved_head_dim, cfg.d_ff
+            f"attention + MLP and Mamba layers (ROADMAP.md Queue 1 items 6 "
+            f"and 8)")
+    hd, f = cfg.resolved_head_dim, cfg.d_ff
     nq, nkv = cfg.n_heads * hd, cfg.n_kv_heads * hd
-    ffn_p = {"wi_up": (d, f), "wo": (f, d)}
+    ffn_p = {"wi_up": ((d, f), BF16), "wo": ((f, d), BF16)}
     if cfg.mlp_gated:
-        ffn_p["wi_gate"] = (d, f)
-    return {"norm1": (d,), "norm2": (d,),
-            "mixer": {"wq": (d, nq), "wk": (d, nkv), "wv": (d, nkv),
-                      "wo": (nq, d)},
+        ffn_p["wi_gate"] = ((d, f), BF16)
+    return {"norm1": ((d,), BF16), "norm2": ((d,), BF16),
+            "mixer": {"wq": ((d, nq), BF16), "wk": ((d, nkv), BF16),
+                      "wv": ((d, nkv), BF16), "wo": ((nq, d), BF16)},
             "ffn": ffn_p}
 
 
 def _stacked(tree: dict, n: int) -> dict:
-    return {k: _stacked(v, n) if isinstance(v, dict) else (n,) + v
+    return {k: _stacked(v, n) if isinstance(v, dict) else ((n,) + v[0], v[1])
             for k, v in tree.items()}
 
 
 def param_shapes(cfg: ModelConfig) -> dict:
-    """The params tree of ``cfg`` with a shape at each leaf (all bf16)."""
+    """The params tree of ``cfg`` with (shape, dtype) at each leaf: bf16,
+    except the fp32 ``A_log``, ``D`` and ``dt_bias`` of Mamba layers."""
     if cfg.is_encdec or cfg.is_vlm:
         raise NotImplementedError("encoder-decoder and VLM params are not "
                                   "ported yet (ROADMAP.md Queue 1 item 8)")
-    tree: dict = {"embed": (cfg.padded_vocab, cfg.d_model),
-                  "final_norm": (cfg.d_model,)}
+    v, d = cfg.padded_vocab, cfg.d_model
+    tree: dict = {"embed": ((v, d), BF16), "final_norm": ((d,), BF16)}
     if not cfg.tie_embeddings:
-        tree["lm_head"] = (cfg.d_model, cfg.padded_vocab)
+        tree["lm_head"] = ((d, v), BF16)
     pat, fpat = cfg.layer_pattern, cfg.ffn_pattern
     if cfg.n_periods > 0:
         period = {f"l{j}": _layer_shapes(cfg, pat[j], fpat[j % len(fpat)])
@@ -92,23 +110,36 @@ def leaf_sizes(params: dict) -> list[tuple[str, int]]:
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
-    """The port's own random params: every weight is normal x 0.02 drawn in
-    fp32 from a ``torch.Generator`` seeded with ``seed`` on ``device``, then
-    cast to bf16; norms are zeros. Paths, shapes and dtypes are those of
-    ``repro.models.init_params``; the numbers are not."""
+    """The port's own random params, by the reference's init rules
+    (``dense_init``, ``mamba_init``): weights are normal x 0.02 drawn in
+    fp32 from a ``torch.Generator`` seeded with ``seed`` on ``device`` and
+    cast to bf16 (normal x 0.1 for ``conv_w``, x dt_rank^-0.5 for
+    ``dt_proj``); norms and ``conv_b`` are zeros; ``A_log`` = log(1..N)
+    over every channel, ``D`` = 1 and ``dt_bias`` = -4.6 in fp32. Paths,
+    shapes, dtypes and those fixed leaves are the reference's; the random
+    numbers are not. Each fp32 draw is scaled in place, so a leaf costs
+    its fp32 draw and its bf16 copy at most."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
+    scales = {"conv_w": 0.1, "dt_proj": cfg.resolved_dt_rank ** -0.5}
 
-    def draw(path: str, shape: Shape) -> torch.Tensor:
-        if "norm" in path.rsplit("/", 1)[-1]:
-            return torch.zeros(shape, dtype=torch.bfloat16, device=dev)
-        w = torch.randn(shape, generator=gen, dtype=torch.float32, device=dev)
-        return (w * 0.02).to(torch.bfloat16)
+    def draw(path: str, spec: tuple[Shape, torch.dtype]) -> torch.Tensor:
+        shape, dtype = spec
+        name = path.rsplit("/", 1)[-1]
+        if "norm" in name or name == "conv_b":
+            return torch.zeros(shape, dtype=dtype, device=dev)
+        if name == "A_log":
+            n = torch.arange(1, shape[-1] + 1, dtype=FP32, device=dev)
+            return torch.log(n).expand(shape).contiguous()
+        if name == "D":
+            return torch.ones(shape, dtype=dtype, device=dev)
+        if name == "dt_bias":   # softplus^-1(0.01)
+            return torch.full(shape, -4.6, dtype=dtype, device=dev)
+        w = torch.randn(shape, generator=gen, dtype=FP32, device=dev)
+        return w.mul_(scales.get(name, 0.02)).to(dtype)
 
-    shapes = param_shapes(cfg)
-    flat = {p: draw(p, s) for p, s in leaves(shapes)}
-    return _unflatten(flat)
+    return _unflatten({p: draw(p, s) for p, s in leaves(param_shapes(cfg))})
 
 
 def _unflatten(flat: dict[str, torch.Tensor]) -> dict:
@@ -132,7 +163,8 @@ def _to_torch(a: np.ndarray, device: torch.device) -> torch.Tensor:
 def params_from_numpy(tree: dict, cfg: ModelConfig, device=None) -> dict:
     """The JAX package's params (nested dicts of numpy arrays, e.g.
     ``jax.tree.map(np.asarray, params)``) as torch tensors on ``device``.
-    Checks every path and shape against ``cfg``."""
+    Checks every path, shape and dtype against ``cfg``; fp32 leaves cross
+    unchanged."""
     dev = resolve_device(device)
     want = dict(leaves(param_shapes(cfg)))
     got = dict(leaves(tree))
@@ -140,10 +172,12 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device=None) -> dict:
         raise ValueError(f"params tree does not match {cfg.name}: missing "
                          f"{sorted(set(want) - set(got))}, unexpected "
                          f"{sorted(set(got) - set(want))}")
-    for path, shape in want.items():
-        if tuple(got[path].shape) != shape:
-            raise ValueError(f"{path}: shape {tuple(got[path].shape)}, "
-                             f"{cfg.name} needs {shape}")
+    for path, (shape, dtype) in want.items():
+        a = got[path]
+        name = str(dtype).replace("torch.", "")
+        if tuple(a.shape) != shape or a.dtype.name != name:
+            raise ValueError(f"{path}: {a.dtype.name} {tuple(a.shape)}, "
+                             f"{cfg.name} needs {name} {shape}")
     return tree_map(lambda a: _to_torch(a, dev), tree)
 
 

@@ -9,6 +9,7 @@ from repro_torch.models.config import ModelConfig
 
 _MODULES = {
     "gemma3-1b": "repro_torch.configs.gemma3_1b",
+    "falcon-mamba-7b": "repro_torch.configs.falcon_mamba_7b",
 }
 
 _NOT_PORTED = {
@@ -17,8 +18,8 @@ _NOT_PORTED = {
     "granite-20b": "Queue 1 item 12 (the other dense decoders)",
     "mixtral-8x7b": "Queue 1 item 6 (MoE)",
     "granite-moe-1b-a400m": "Queue 1 item 6 (MoE)",
-    "jamba-1.5-large-398b": "Queue 1 item 7 (Mamba)",
-    "falcon-mamba-7b": "Queue 1 item 7 (Mamba)",
+    "jamba-1.5-large-398b": "Queue 1 item 6 (MoE; its Mamba layers are "
+                            "ported, and it needs more than one card)",
     "llama-3.2-vision-11b": "Queue 1 item 8 (VLM and encoder-decoder)",
     "seamless-m4t-medium": "Queue 1 item 8 (VLM and encoder-decoder)",
 }

@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import flash_attention as _flash
+from repro_torch.kernels import mamba_scan as _scan
 from repro_torch.kernels import matmul as _matmul
 from repro_torch.kernels import ref
 
@@ -47,3 +48,11 @@ def flash_attention(q, k, v, causal: bool = True, window: int = 0,
     if uses_kernel(q, impl):
         return _flash.flash_attention(q, k, v, causal, window, scale)
     return ref.flash_attention_ref(q, k, v, causal, window, scale)
+
+
+def mamba_scan(dt, A, B, C, x, impl: str = "auto"):
+    """Selective scan. dt, x: (Bt,S,D); A: (D,N); B, C: (Bt,S,N) -> (y
+    (Bt,S,D) in x's dtype, final state h_last (Bt,D,N) fp32)."""
+    if uses_kernel(x, impl):
+        return _scan.mamba_scan(dt, A, B, C, x)
+    return ref.mamba_scan_ref(dt, A, B, C, x)

@@ -1,11 +1,12 @@
 """Plain PyTorch versions of the port's kernels: what the CPU runs, and
 what each kernel is held against on the card.
 
-Counterparts of ``repro/kernels/ref.py:22-37``, with two differences of
-contract that the kernels share: matmul also takes B as (N, K), and flash
+Counterparts of ``repro/kernels/ref.py:22-63``, with three differences of
+contract that the kernels share: matmul also takes B as (N, K), flash
 attention follows the Pallas kernel (top-left causal rule by index,
 unnormalised P rounded to V's dtype before P.V, then divided by the fp32
-denominator) and adds native GQA, a sliding window and a score scale.
+denominator) and adds native GQA, a sliding window and a score scale, and
+the selective scan also returns its final state.
 """
 
 from __future__ import annotations
@@ -57,3 +58,26 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     acc = torch.einsum("bkgst,bktd->bkgsd", p.to(v.dtype).float(), v.float())
     o = acc / l.clamp_min(1e-30)
     return o.reshape(B, H, S, D).to(q.dtype)
+
+
+def mamba_scan_ref(dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
+                   C: torch.Tensor, x: torch.Tensor
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Selective scan, sequential over time with an fp32 state from h_0 = 0:
+
+        h_t = exp(dt_t A) h_{t-1} + (dt_t x_t) B_t ;  y_t = h_t . C_t
+
+    dt, x: (Bt,S,D); A: (D,N); B, C: (Bt,S,N) -> (y (Bt,S,D) in x's dtype,
+    h_last (Bt,D,N) fp32, the state after step S)."""
+    Bt, S, D = x.shape
+    out_dtype = x.dtype
+    A, dt, x = A.float(), dt.float(), x.float()
+    B, C = B.float(), C.float()
+    h = torch.zeros((Bt, D, A.shape[1]), dtype=torch.float32, device=x.device)
+    ys = torch.empty((Bt, S, D), dtype=torch.float32, device=x.device)
+    for t in range(S):
+        dt_t = dt[:, t]
+        h = torch.exp(dt_t[..., None] * A) * h \
+            + (dt_t * x[:, t])[..., None] * B[:, t, None, :]
+        ys[:, t] = torch.einsum("bdn,bn->bd", h, C[:, t])
+    return ys.to(out_dtype), h

@@ -4,6 +4,8 @@ greedy-decode — port of ``repro.launch.serve`` without its SVM options.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-1b \\
         --batch 4 --prompt-len 16 --decode 16
 
+``--arch`` takes every ported config (gemma3-1b, falcon-mamba-7b).
+
 It runs on CUDA unless given ``--device cpu``. Prefill and decode are timed
 with CUDA events on the card and with ``time.perf_counter`` on the CPU.
 The SVM weight stream (``--svm-*``, ``--requests``, ``--chaos``…) comes

@@ -1,13 +1,13 @@
-"""Dense decoder assembly: forward, prefill and decode over the stacked
-period layout — port of ``repro/models/transformer.py:139-454``.
+"""Decoder assembly: forward, prefill and decode over the stacked period
+layout — port of ``repro/models/transformer.py:139-454``.
 
 The params and caches keep the reference's layout (layers of whole periods
 stacked along a leading ``n_periods`` axis, the rest unrolled as
 ``remainder/r<i>``); the reference's ``lax.scan`` over periods becomes a
-Python loop over slices of the stacked tensors. Only attention + MLP
-layers are ported: MoE, Mamba and cross-attention layers and ``encode``
-raise ``NotImplementedError``. ``impl`` picks the kernels
-(``kernels/ops.py``)."""
+Python loop over slices of the stacked tensors. Attention + MLP layers and
+attention-free Mamba layers (no FFN) are ported: MoE and cross-attention
+layers and ``encode`` raise ``NotImplementedError``. ``impl`` picks the
+kernels (``kernels/ops.py``)."""
 
 from __future__ import annotations
 
@@ -15,15 +15,20 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.models import attention as attn_lib
-from repro_torch.models.config import ATTN, ATTN_LOCAL, MLP, ModelConfig
+from repro_torch.models import mamba as mamba_lib
+from repro_torch.models.config import (ATTN, ATTN_LOCAL, MAMBA, MLP, NONE,
+                                       ModelConfig)
 from repro_torch.models.layers import embed_apply, mlp_apply, rms_norm
 
 
-def _check_dense(mixer: str, ffn: str) -> None:
-    if mixer not in (ATTN, ATTN_LOCAL) or ffn != MLP:
+_PORTED = {(ATTN, MLP), (ATTN_LOCAL, MLP), (MAMBA, NONE)}
+
+
+def _check_ported(mixer: str, ffn: str) -> None:
+    if (mixer, ffn) not in _PORTED:
         raise NotImplementedError(
-            f"layer kind ({mixer}, {ffn}) is not ported yet: MoE, Mamba and "
-            f"cross-attention come with ROADMAP.md Queue 1 items 6-8")
+            f"layer kind ({mixer}, {ffn}) is not ported yet: MoE and "
+            f"cross-attention come with ROADMAP.md Queue 1 items 6 and 8")
 
 
 def encode(*args, **kwargs):
@@ -45,10 +50,21 @@ def _kind(cfg: ModelConfig, j: int) -> tuple[str, str]:
 def _apply_layer(lp: dict, cfg: ModelConfig, x: torch.Tensor, mixer: str,
                  ffn: str, *, positions: torch.Tensor, cache: dict | None,
                  impl: str) -> tuple[torch.Tensor, dict]:
-    """One residual layer. Returns (x, kv): the prefill K/V when ``cache``
-    is None, else the decode buffer updated in place."""
-    _check_dense(mixer, ffn)
+    """One residual layer. Returns (x, state): the prefill K/V or Mamba
+    state when ``cache`` is None, else the decode cache updated in place."""
+    _check_ported(mixer, ffn)
     h = rms_norm(x, lp["norm1"], cfg.norm_eps)
+    if mixer == MAMBA:
+        if cache is None:
+            o, state = mamba_lib.mamba_forward(lp["mixer"], cfg, h,
+                                               return_state=True, impl=impl)
+        else:
+            o, new = mamba_lib.mamba_decode_step(lp["mixer"], cfg, h, cache,
+                                                 impl=impl)
+            for name, leaf in new.items():
+                cache[name].copy_(leaf)
+            state = cache
+        return x + o, state
     window = cfg.sliding_window if mixer == ATTN_LOCAL else 0
     o, kv = attn_lib.self_attention(
         lp["mixer"], cfg, h, positions=positions, window=window,
@@ -97,8 +113,8 @@ def _lm_head(params: dict, cfg: ModelConfig, x: torch.Tensor,
 def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
             impl: str = "auto") -> torch.Tensor:
     """Teacher-forced full-sequence pass -> (B, S, padded_vocab) logits.
-    (The reference also returns the MoE aux loss, always 0 for the dense
-    decoders ported here.)"""
+    (The reference also returns the MoE aux loss, always 0 for the layer
+    kinds ported here.)"""
     B, S = tokens.shape
     x = embed_apply(params["embed"], tokens, cfg.embed_scale, cfg.d_model)
     positions = torch.arange(S, dtype=torch.int32, device=x.device)[None, :]
@@ -129,13 +145,14 @@ def _empty_buffer(cfg: ModelConfig, B: int, W: int, device) -> dict:
 
 
 def _assemble(cfg: ModelConfig, t: torch.Tensor, per_layer: dict) -> dict:
-    """Cache tree in the reference's layout from {(key, i): buffer}."""
+    """Cache tree in the reference's layout from {(key, i): layer cache},
+    stacking each leaf of a period's layers along a leading axis."""
     cache: dict = {"t": t}
     if cfg.n_periods > 0:
         cache["periods"] = {
             f"l{j}": {name: torch.stack([per_layer[(f"l{j}", i)][name]
                                          for i in range(cfg.n_periods)])
-                      for name in ("k", "v", "pos")}
+                      for name in per_layer[(f"l{j}", 0)]}
             for j in range(len(cfg.layer_pattern))}
     if cfg.n_remainder > 0:
         cache["remainder"] = {f"r{i}": per_layer[(f"r{i}", None)]
@@ -147,9 +164,12 @@ def init_cache(cfg: ModelConfig, B: int, S: int, device=None) -> dict:
     """Decode cache sized for a context of S tokens."""
     bufs = {}
     for key, i, mixer, ffn in _slots(cfg):
-        _check_dense(mixer, ffn)
-        bufs[(key, i)] = _empty_buffer(cfg, B, _buffer_width(cfg, mixer, S),
-                                       device)
+        _check_ported(mixer, ffn)
+        if mixer == MAMBA:
+            bufs[(key, i)] = mamba_lib.mamba_init_cache(cfg, B, device)
+        else:
+            bufs[(key, i)] = _empty_buffer(
+                cfg, B, _buffer_width(cfg, mixer, S), device)
     return _assemble(cfg, torch.zeros((B,), dtype=torch.int32, device=device),
                      bufs)
 
@@ -184,9 +204,11 @@ def prefill_hidden(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     positions = torch.arange(S, dtype=torch.int32, device=x.device)[None, :]
     bufs = {}
     for key, i, mixer, ffn in _slots(cfg):
-        x, kv = _apply_layer(_layer_params(params, key, i), cfg, x, mixer,
-                             ffn, positions=positions, cache=None, impl=impl)
-        bufs[(key, i)] = _kv_to_buffer(kv, _buffer_width(cfg, mixer, CL))
+        x, state = _apply_layer(_layer_params(params, key, i), cfg, x,
+                                mixer, ffn, positions=positions, cache=None,
+                                impl=impl)
+        bufs[(key, i)] = state if mixer == MAMBA else \
+            _kv_to_buffer(state, _buffer_width(cfg, mixer, CL))
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     t = torch.full((B,), S, dtype=torch.int32, device=x.device)
     return x, _assemble(cfg, t, bufs)
@@ -206,8 +228,10 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
 def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
                 cache: dict, impl: str = "auto") -> tuple[torch.Tensor, dict]:
     """One greedy decode step. token: (B, 1) int32. Writes the token's K/V
-    into ``cache``'s buffers in place; the returned cache shares them and
-    carries ``t + 1``."""
+    into ``cache``'s attention buffers and the new ``h`` and ``conv`` into
+    its Mamba layers, all in place (the reference returns new arrays; the
+    port saves the copy); the returned cache shares them and carries
+    ``t + 1``."""
     x = embed_apply(params["embed"], token, cfg.embed_scale, cfg.d_model)
     positions = cache["t"][:, None]                            # (B,1)
     for key, i, mixer, ffn in _slots(cfg):

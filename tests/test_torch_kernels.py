@@ -14,9 +14,11 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import ref as jref  # noqa: E402
 from repro.kernels.flash_attention import flash_attention_pallas  # noqa: E402
+from repro.kernels.mamba_scan import mamba_scan_pallas  # noqa: E402
 from repro.kernels.matmul import matmul_pallas  # noqa: E402
 from repro.models.attention import _attend  # noqa: E402
 from repro_torch.kernels import flash_attention as tflash  # noqa: E402
+from repro_torch.kernels import mamba_scan as tscan  # noqa: E402
 from repro_torch.kernels import matmul as tmatmul  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 
@@ -143,6 +145,62 @@ def test_flash_plain_gqa_window_matches_model_attend(hkv, window):
     np.testing.assert_allclose(_np(got), _np(want), rtol=2e-2, atol=2e-2)
 
 
+# --------------------------------------------------------------- mamba scan
+
+def _scan_inputs(Bt, S, D, N, x_dtype="f32"):
+    """The inputs of test_kernels.py:104-108, from numpy: dt = softplus(.),
+    A = -exp(0.3 .), B, C, x standard normal."""
+    rng = np.random.default_rng(9)
+    dt = np.log1p(np.exp(rng.standard_normal((Bt, S, D)))).astype(np.float32)
+    A = (-np.exp(rng.standard_normal((D, N)) * 0.3)).astype(np.float32)
+    B = rng.standard_normal((Bt, S, N)).astype(np.float32)
+    C = rng.standard_normal((Bt, S, N)).astype(np.float32)
+    x = rng.standard_normal((Bt, S, D)).astype(np.float32)
+    jd, td = DT[x_dtype]
+    j = [jnp.asarray(a) for a in (dt, A, B, C)] + [jnp.asarray(x, jd)]
+    t = [torch.from_numpy(a) for a in (dt, A, B, C)] + [torch.from_numpy(x).to(td)]
+    return j, t
+
+
+def _h_last_f64(dt, A, B, C, x):
+    """The final state by a float64 recurrence in numpy."""
+    dt, A, B, x = (np.asarray(a, np.float64) for a in (dt, A, B, _np(x)))
+    h = np.zeros((x.shape[0], x.shape[2], A.shape[1]))
+    for t in range(x.shape[1]):
+        h = np.exp(dt[:, t, :, None] * A) * h \
+            + (dt[:, t] * x[:, t])[..., None] * B[:, t, None, :]
+    return h
+
+
+@pytest.mark.parametrize("dims", [(1, 128, 512, 16), (2, 128, 640, 8),
+                                  (1, 200, 256, 16)])
+def test_mamba_scan_plain_matches_pallas(dims):
+    """fp32, at test_kernels.py:101-113's tolerance 2e-3. S=200 is no
+    multiple of 128: the Pallas kernel shrinks its chunk to 100, the plain
+    version has none. The final state, which the Pallas kernel does not
+    return, against a float64 recurrence."""
+    Bt, S, D, N = dims
+    j, t = _scan_inputs(*dims)
+    want = mamba_scan_pallas(*j, interpret=True)
+    y, h_last = ref.mamba_scan_ref(*t)
+    assert y.dtype == torch.float32 and h_last.shape == (Bt, D, N)
+    np.testing.assert_allclose(_np(y), _np(want), rtol=2e-3, atol=2e-3)
+    np.testing.assert_allclose(_np(h_last), _h_last_f64(*t), rtol=2e-3,
+                               atol=2e-3)
+
+
+def test_mamba_scan_plain_matches_pallas_bf16_x():
+    """x in bf16 as the model gives it: y comes out in bf16 from the same
+    fp32 recurrence, within one bf16 rounding of the output (1e-2)."""
+    j, t = _scan_inputs(2, 64, 256, 4, "bf16")
+    want = mamba_scan_pallas(*j, interpret=True)
+    y, h_last = ops.mamba_scan(*t)
+    assert y.dtype == torch.bfloat16 and h_last.dtype == torch.float32
+    np.testing.assert_allclose(_np(y), _np(want), rtol=1e-2, atol=1e-2)
+    np.testing.assert_allclose(_np(h_last), _h_last_f64(*t), rtol=2e-3,
+                               atol=2e-3)
+
+
 # ------------------------------------------------- dispatch, no fallback
 
 def test_ops_unknown_impl_raises():
@@ -152,24 +210,33 @@ def test_ops_unknown_impl_raises():
     with pytest.raises(ValueError):
         ops.flash_attention(a[None, None], a[None, None], a[None, None],
                             impl="pallas")
+    _, t = _scan_inputs(1, 4, 8, 2)
+    with pytest.raises(ValueError):
+        ops.mamba_scan(*t, impl="bogus")
 
 
 def test_ops_cuda_impl_rejects_cpu_tensors():
     _, a = _both(21, (8, 8))
     with pytest.raises(ValueError):
         ops.matmul(a, a, impl="cuda")
+    _, t = _scan_inputs(1, 4, 8, 2)
+    with pytest.raises(ValueError):
+        ops.mamba_scan(*t, impl="cuda")
 
 
 def test_wrappers_take_the_plain_version_on_cpu_without_launching():
     _, a = _both(22, (16, 32))
     _, b = _both(23, (32, 8))
     _, q = _both(24, (1, 2, 16, 64))
-    before = (tmatmul.launches, tflash.launches)
+    _, t = _scan_inputs(1, 5, 8, 2)
+    before = (tmatmul.launches, tflash.launches, tscan.launches)
     np.testing.assert_array_equal(_np(tmatmul.matmul(a, b)),
                                   _np(ref.matmul_ref(a, b)))
     np.testing.assert_array_equal(_np(tflash.flash_attention(q, q, q)),
                                   _np(ref.flash_attention_ref(q, q, q)))
-    assert (tmatmul.launches, tflash.launches) == before
+    for got, want in zip(tscan.mamba_scan(*t), ref.mamba_scan_ref(*t)):
+        np.testing.assert_array_equal(_np(got), _np(want))
+    assert (tmatmul.launches, tflash.launches, tscan.launches) == before
 
 
 def test_wrappers_refuse_mixed_devices():
@@ -182,3 +249,6 @@ def test_wrappers_refuse_mixed_devices():
     with pytest.raises(ValueError):
         tflash.flash_attention(meta[None, None], meta[None, None],
                                meta[None, None])
+    _, t = _scan_inputs(1, 4, 4, 4)
+    with pytest.raises(ValueError):
+        tscan.mamba_scan(*t[:4], meta[None])

@@ -131,18 +131,18 @@ def test_bridge_rejects_a_tree_of_another_config(model):
 
 
 @pytest.mark.parametrize("full", [False, True])
-def test_own_init_has_the_reference_paths_shapes_dtypes(full):
+@pytest.mark.parametrize("name", ["gemma3-1b", "falcon-mamba-7b"])
+def test_own_init_has_the_reference_paths_shapes_dtypes(name, full):
     """The port's seeded init at the reduced size, and its tree at full
-    width (shapes only, from jax.eval_shape: no allocation)."""
-    name = "gemma3-1b"
+    width (shapes and dtypes only, from jax.eval_shape: no allocation)."""
     jcfg = jget_config(name) if full else jget_reduced(name)
     cfg = get_config(name) if full else get_reduced(name)
     want = jax.eval_shape(lambda: jinit_params(jcfg, jax.random.PRNGKey(0)))
     want = [(p, tuple(x.shape), str(x.dtype))
             for p, x in bridge.leaves(want)]
     if full:
-        got = [(p, tuple(s), "bfloat16")
-               for p, s in bridge.leaves(bridge.param_shapes(cfg))]
+        got = [(p, tuple(s), str(dt).replace("torch.", ""))
+               for p, (s, dt) in bridge.leaves(bridge.param_shapes(cfg))]
     else:
         params = bridge.init_params(cfg, seed=0, device="cpu")
         got = [(p, tuple(x.shape), str(x.dtype).replace("torch.", ""))
