@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
 
-1. Prints the card's name and power limit, then builds the three CUDA
+1. Prints the card's name and power limit, then builds the five CUDA
    kernels from ``src/repro_torch/kernels/csrc`` with nvcc (sm_90a), one
    nvcc process each, all at once.
 2. Holds the matmul kernel against its plain version at every shape the
@@ -24,7 +24,15 @@
    in bf16; and the matmul kernel at every falcon-mamba shape.
 6. Serves full-width falcon-mamba-7b the same way (64 Mamba layers, 14.6
    GB of bf16 weights), with the same checks for matmul and mamba_scan.
-7. Prints one JSON line of kernel numbers, the nvidia-smi line, and last
+7. The paper's Category-I and Category-II workloads: holds the STREAM
+   triad and Jacobi-2d kernels against their plain versions bit for bit
+   (fp32 triad: at most 1 ulp, the count printed) at (32768, 32768) in
+   fp32 and bf16, above 2^31 elements and on ragged grids; runs Category
+   I (one triad) and Category II (4 sweeps, as ``Jacobi2d``'s trace
+   orders them) at (32768, 32768) fp32 through ``repro_torch.kernels.ops``
+   with launch counts; prints one ``dos_sweep`` of the port's copy of the
+   SVM core. Then frees all of it.
+8. Prints one JSON line of kernel numbers, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
 Every time is the median over repeats, timed with CUDA events; matmul
@@ -72,6 +80,12 @@ MODEL_TOL = dict(rtol=2e-2, atol=2e-2, atol_rel=2e-2)  # the repo's bf16 model t
 # that its Mamba layers move the logits it is checked by (as
 # tests/test_torch_mamba.py's LOUD_MODEL)
 LOUD_MODEL = {"in_proj": 3.0, "conv_w": 3.0, "x_proj": 3.0, "out_proj": 1.0}
+# the paper workloads' grid: 4 GiB per fp32 array, 85x the L2 (STREAM asks
+# for 4x the last-level cache); BIG has more than 2^31 elements
+GRID = (32768, 32768)
+BIG = (65537, 32768)
+STREAM_SCALAR = 3.0  # STREAM's own triad scalar
+CAP_GB = 8           # the simulated device of the dos_sweep line
 PATH_RATIO = 1.5     # see compare_paths
 MARGIN = 0.25        # a top-2 logit gap that bf16 noise at full width does not close
 
@@ -157,6 +171,219 @@ def check_discerns(name: str, want, tol) -> None:
         if within(bad, want, tol):
             raise AssertionError(f"{name}: tolerance {tol} passes a zeroed or "
                                  f"10%-off output")
+
+
+# ------------------------------------------- paper workloads (Categories I, II)
+
+def _ordered(x):
+    """fp32 bits as integers in the order of the values (one step = 1 ulp)."""
+    bits = x.view(torch.int32).long()
+    return torch.where(bits >= 0, bits, -(bits & 0x7FFFFFFF))
+
+
+def check_bits(name, got, want, max_ulp: int = 0) -> tuple[int, float]:
+    """Raises unless ``got`` equals ``want`` bit for bit, or (fp32 with
+    ``max_ulp``) within that many ulps; returns (elements that differ,
+    max |diff|)."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{name}: {got.shape} {got.dtype} against "
+                             f"{want.shape} {want.dtype}")
+    ints = torch.int32 if got.dtype == torch.float32 else torch.int16
+    differ = int((got.view(ints) != want.view(ints)).sum())
+    if not differ:
+        return 0, 0.0
+    err = (got.float() - want.float()).abs().max().item()
+    ulps = ((_ordered(got) - _ordered(want)).abs().max().item()
+            if got.dtype == torch.float32 else math.inf)
+    print(f"{name}: {differ} elements differ, max |diff| {err:.3e}, "
+          f"max {ulps} ulp", flush=True)
+    if ulps > max_ulp:
+        raise AssertionError(f"{name}: {differ} elements differ from the plain "
+                             f"version (max |diff| {err:.3e}, {ulps} ulp; "
+                             f"allowed {max_ulp})")
+    return differ, err
+
+
+def timed_calls(kernel, plain, library=None) -> dict:
+    """Graph-replay ms of a data kernel, its plain version and the library
+    call. ``ms_cached`` is the kernel's time while the blocks the check
+    freed still sit in the allocator's cache; ``ms`` and the others are
+    read after ``free_memory`` hands them back to the driver. (On the H100
+    the triad and Jacobi-2d kernels read up to 12 % slower in the first
+    state: PERF.md.)"""
+    ms_cached = time_ms(kernel, [()])
+    free_memory()
+    return dict(ms_cached=ms_cached, ms=time_ms(kernel, [()]),
+                plain_ms=time_ms(plain, [()]),
+                library_ms=None if library is None else time_ms(library, [()]))
+
+
+def _grid(shape, dtype, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randn(shape, generator=g, device="cuda", dtype=dtype)
+
+
+def _dt(dtype) -> str:
+    return str(dtype).replace("torch.", "")
+
+
+def triad_case(shape, dtype, alphas, timed=False):
+    """The triad kernel against its plain version at each alpha: bf16 bit
+    for bit, fp32 within 1 ulp (the kernel's FMA rounds once; the plain
+    version reaches the same single rounding from fp64)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import stream_triad as ktriad
+
+    b, c = _grid(shape, dtype, 1 + shape[0]), _grid(shape, dtype, 2 + shape[1])
+    rows = []
+    for alpha in alphas:
+        got = ktriad.triad(b, c, alpha)
+        want = ref.triad_ref(b, c, alpha)
+        torch.cuda.synchronize()
+        tag = f"triad {shape} {_dt(dtype)} alpha={alpha}"
+        differ, err = check_bits(tag, got, want,
+                                 1 if dtype == torch.float32 else 0)
+        del got, want
+        row = dict(shape=list(shape), dtype=_dt(dtype), alpha=alpha,
+                   elements_differ=differ, max_abs_err=err)
+        if timed:
+            row.update(timed_calls(lambda: ktriad.triad(b, c, alpha),
+                                   lambda: ref.triad_ref(b, c, alpha),
+                                   lambda: torch.add(b, c, alpha=alpha)))
+            row["bound_ms"], row["bound_by"] = bound_ms(
+                3 * b.numel() * b.element_size(), 0.0, dtype)
+        print(f"{tag}: {differ} elements differ"
+              + (f"; kernel {row['ms']:.4f} ms ({row['ms_cached']:.4f} with "
+                 f"the check's blocks cached)  plain {row['plain_ms']:.4f}  "
+                 f"torch.add {row['library_ms']:.4f}  bound "
+                 f"{row['bound_ms']:.4f} ({row['bound_by']})" if timed else ""),
+              flush=True)
+        rows.append(row)
+    return rows
+
+
+def jacobi_case(shape, dtype, timed=False):
+    """The Jacobi-2d kernel against its plain version bit for bit, and its
+    boundary rows and columns against the input."""
+    from repro_torch.kernels import jacobi2d as kjac
+    from repro_torch.kernels import ref
+
+    a = _grid(shape, dtype, 3 + shape[0] + shape[1])
+    got = kjac.jacobi2d(a)
+    want = ref.jacobi2d_ref(a)
+    torch.cuda.synchronize()
+    tag = f"jacobi2d {shape} {_dt(dtype)}"
+    differ, err = check_bits(tag, got, want)
+    for edge in ((0,), (-1,), (slice(None), 0), (slice(None), -1)):
+        check_bits(f"{tag} boundary {edge}", got[edge].contiguous(),
+                   a[edge].contiguous())
+    del got, want
+    row = dict(shape=list(shape), dtype=_dt(dtype), elements_differ=differ,
+               max_abs_err=err)
+    if timed:
+        row.update(timed_calls(lambda: kjac.jacobi2d(a),
+                               lambda: ref.jacobi2d_ref(a)))
+        row["bound_ms"], row["bound_by"] = bound_ms(
+            2 * a.numel() * a.element_size(), 0.0, dtype)
+    print(f"{tag}: {differ} elements differ, boundary equal to the input"
+          + (f"; kernel {row['ms']:.4f} ms ({row['ms_cached']:.4f} with the "
+             f"check's blocks cached)  plain {row['plain_ms']:.4f}  "
+             f"bound {row['bound_ms']:.4f} ({row['bound_by']})" if timed else ""),
+          flush=True)
+    return row
+
+
+def workloads_run() -> dict:
+    """Category I, then Category II as ``Jacobi2d``'s trace orders its
+    kernels (B <- J(A), A <- J(B), ITERS times), at GRID in fp32 through
+    ``repro_torch.kernels.ops``, with the kernels' launches counted; then
+    each output against the plain versions applied in the same order."""
+    from repro_torch.core.traces import Jacobi2d
+    from repro_torch.kernels import jacobi2d as kjac
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import stream_triad as ktriad
+
+    b, c = _grid(GRID, torch.float32, 11), _grid(GRID, torch.float32, 12)
+    A0 = _grid(GRID, torch.float32, 13)
+    torch.cuda.synchronize()
+    ktriad.launches = kjac.launches = 0
+    t0 = time.perf_counter()
+    a = ops.triad(b, c, STREAM_SCALAR)
+    A = A0
+    for _ in range(Jacobi2d.ITERS):
+        B = ops.jacobi2d(A)
+        A = ops.jacobi2d(B)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    launches = {"triad": ktriad.launches, "jacobi2d": kjac.launches}
+    want_launches = {"triad": 1, "jacobi2d": 2 * Jacobi2d.ITERS}
+    if launches != want_launches:
+        raise AssertionError(f"paper workloads: launches {launches}, the "
+                             f"traces order {want_launches}")
+    tri = check_bits("category I output", a, ref.triad_ref(b, c, STREAM_SCALAR),
+                     max_ulp=1)[0]
+    del a, b, c, B
+    x = A0
+    for _ in range(2 * Jacobi2d.ITERS):
+        x = ref.jacobi2d_ref(x)
+    check_bits("category II output", A, x)
+    del A, A0, x
+    print(f"paper workloads at {GRID} fp32: category I (1 triad) and "
+          f"category II ({2 * Jacobi2d.ITERS} sweeps) in {wall:.2f} ms; "
+          f"launches {launches}; outputs equal the plain versions "
+          f"({tri} triad elements 1 ulp apart)", flush=True)
+    return dict(launches=launches, wall_ms=wall, triad_elements_differ=tri)
+
+
+def sweep_line() -> dict:
+    """One dos_sweep of the port's copy of the SVM core on this machine."""
+    from repro_torch.core import GB, dos_sweep
+
+    out = {}
+    for label, spec in (("stream", ("stream", {})),
+                        ("jacobi2d", ("jacobi2d", {})),
+                        ("jacobi2d-svm-aware", ("jacobi2d", {"svm_aware": True}))):
+        rows = dos_sweep(spec, (75, 109, 150), CAP_GB * GB, jobs=0)
+        out[label] = [r["norm_perf"] for r in rows]
+    print(f"dos_sweep (repro_torch.core, {CAP_GB} GB device, DOS 75/109/150, "
+          "norm_perf): " + "; ".join(
+              f"{k} " + "/".join(f"{v:.4f}" for v in vs) for k, vs in out.items()),
+          flush=True)
+    return out
+
+
+def workloads_phase():
+    print(f"paper workloads phase: {torch.cuda.memory_allocated() / 1e9:.3f} GB "
+          "allocated at its start", flush=True)
+    tri = triad_case(GRID, torch.float32, (2.5, 0.1), timed=False)
+    tri += triad_case(GRID, torch.float32, (STREAM_SCALAR,), timed=True)
+    tri += triad_case(GRID, torch.bfloat16, (2.5, 0.1), timed=False)
+    tri += triad_case(GRID, torch.bfloat16, (STREAM_SCALAR,), timed=True)
+    free_memory()
+    tri += triad_case((65536, 32768), torch.bfloat16, (2.5,))   # 2^31 elements
+    free_memory()
+    tri += triad_case(BIG, torch.bfloat16, (0.1,))
+    free_memory()
+    for shape in ((300, 640), (1, 7)):
+        for dtype in (torch.float32, torch.bfloat16):
+            tri += triad_case(shape, dtype, (2.5, 0.1, 3.0))
+    jac = [jacobi_case(GRID, torch.float32, timed=True),
+           jacobi_case(GRID, torch.bfloat16, timed=True)]
+    free_memory()
+    jac.append(jacobi_case(BIG, torch.bfloat16))
+    free_memory()
+    for shape in ((100, 128), (97, 130), (2, 5), (1, 1)):
+        for dtype in (torch.float32, torch.bfloat16):
+            jac.append(jacobi_case(shape, dtype))
+    run = workloads_run()
+    free_memory()
+    sweep = sweep_line()
+    main_tri = next(r for r in tri if r.get("ms") is not None
+                    and r["dtype"] == "float32")
+    main_jac = jac[0]
+    weighted = {"triad": [(main_tri, run["launches"]["triad"])],
+                "jacobi2d": [(main_jac, run["launches"]["jacobi2d"])]}
+    return dict(triad=tri, jacobi2d=jac, run=run, dos_sweep=sweep), weighted
 
 
 # ------------------------------------------------------------------ matmul
@@ -635,6 +862,11 @@ def main() -> int:
     served_m = serve_phase(mamba)
     print(f"falcon-mamba-7b phases done at {time.perf_counter() - t_run:.1f} s",
           flush=True)
+    free_memory()
+    work, weighted = workloads_phase()   # last: the serving phases run as before it
+    free_memory()
+    print(f"paper workloads phase done at {time.perf_counter() - t_run:.1f} s",
+          flush=True)
 
     mm_src = "src/repro_torch/kernels/csrc/matmul.cu"
     fa_src = "src/repro_torch/kernels/csrc/flash_attention.cu"
@@ -661,13 +893,22 @@ def main() -> int:
                   mm_src, mm_rep),
         summarize("matmul@mamba-prefill", mm_phases_m["prefill"], mmm_pre,
                   mm_src, mm_rep),
+        summarize("triad@category-I", weighted["triad"],
+                  work["run"]["launches"]["triad"],
+                  "src/repro_torch/kernels/csrc/triad.cu",
+                  "src/repro/kernels/stream_triad.py:21"),
+        summarize("jacobi2d@category-II", weighted["jacobi2d"],
+                  work["run"]["launches"]["jacobi2d"],
+                  "src/repro_torch/kernels/csrc/jacobi2d.cu",
+                  "src/repro/kernels/jacobi2d.py:20"),
     ]
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(dict(card=card, torch=torch.__version__, matmul=mm_rows,
                        flash_attention=fa_rows, serve=served,
                        mamba_scan=scan_rows, matmul_mamba=mm_rows_m,
-                       serve_mamba=served_m, kernels=kernels,
+                       serve_mamba=served_m, paper_workloads=work,
+                       kernels=kernels,
                        seconds=time.perf_counter() - t_run), f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(smi())

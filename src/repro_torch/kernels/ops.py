@@ -12,9 +12,11 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import flash_attention as _flash
+from repro_torch.kernels import jacobi2d as _jacobi
 from repro_torch.kernels import mamba_scan as _scan
 from repro_torch.kernels import matmul as _matmul
 from repro_torch.kernels import ref
+from repro_torch.kernels import stream_triad as _triad
 
 IMPLS = ("auto", "cuda", "torch")
 
@@ -56,3 +58,19 @@ def mamba_scan(dt, A, B, C, x, impl: str = "auto"):
     if uses_kernel(x, impl):
         return _scan.mamba_scan(dt, A, B, C, x)
     return ref.mamba_scan_ref(dt, A, B, C, x)
+
+
+def triad(b: torch.Tensor, c: torch.Tensor, alpha: float,
+          impl: str = "auto") -> torch.Tensor:
+    """STREAM triad b + alpha * c (the paper's Category-I kernel)."""
+    if uses_kernel(b, impl):
+        return _triad.triad(b, c, alpha)
+    return ref.triad_ref(b, c, alpha)
+
+
+def jacobi2d(a: torch.Tensor, impl: str = "auto") -> torch.Tensor:
+    """One 5-point Jacobi sweep over a (R, C) grid (the paper's
+    Category-II kernel); boundary rows and columns pass through."""
+    if uses_kernel(a, impl):
+        return _jacobi.jacobi2d(a)
+    return ref.jacobi2d_ref(a)

@@ -1,15 +1,29 @@
 """Plain PyTorch versions of the port's kernels: what the CPU runs, and
 what each kernel is held against on the card.
 
-Counterparts of ``repro/kernels/ref.py:22-63``, with three differences of
-contract that the kernels share: matmul also takes B as (N, K), flash
-attention follows the Pallas kernel (top-left causal rule by index,
-unnormalised P rounded to V's dtype before P.V, then divided by the fp32
-denominator) and adds native GQA, a sliding window and a score scale, and
-the selective scan also returns its final state.
+Counterparts of ``repro/kernels/ref.py``, with differences of contract
+that the kernels share:
+
+- matmul also takes B as (N, K);
+- flash attention follows the Pallas kernel (top-left causal rule by
+  index, unnormalised P rounded to V's dtype before P.V, then divided by
+  the fp32 denominator) and adds native GQA, a sliding window and a score
+  scale;
+- the selective scan also returns its final state;
+- the STREAM triad rounds as the Pallas kernel does, not as the JAX
+  ``triad_ref``: alpha is rounded to fp32 first; in fp32, b + alpha c is
+  rounded once (XLA contracts the kernel body into an FMA, the JAX
+  reference rounds twice); in bf16, alpha is rounded on to bf16 and the
+  product and the sum are each rounded to bf16;
+- the Jacobi-2d sweep sums as the Pallas kernel does, not as the JAX
+  ``jacobi2d_ref``: the five values in fp32 in the order mid, above,
+  below, left, right, times 0.2 in fp32, rounded once to the dtype (the
+  JAX reference rounds every add in bf16).
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -81,3 +95,59 @@ def mamba_scan_ref(dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
             + (dt_t * x[:, t])[..., None] * B[:, t, None, :]
         ys[:, t] = torch.einsum("bdn,bn->bd", h, C[:, t])
     return ys.to(out_dtype), h
+
+
+def triad_alpha(alpha: float, dtype: torch.dtype) -> float:
+    """alpha as the triad multiplies by it: rounded to fp32, as the Pallas
+    launcher passes it, and for bf16 on to bf16 (``stream_triad.py:22``)."""
+    a = torch.tensor(alpha, dtype=torch.float32)
+    return (a.to(torch.bfloat16) if dtype == torch.bfloat16 else a).item()
+
+
+TRIAD_CHUNK = 1 << 24   # elements per fp64 pass of the fp32 triad
+
+
+def triad_ref(b: torch.Tensor, c: torch.Tensor, alpha: float) -> torch.Tensor:
+    """STREAM triad a = b + alpha c, b and c of one shape in fp32 or bf16.
+
+    fp32: fl32(alpha c + b), one rounding. alpha c is exact in fp64; the
+    fp64 sum is made round-to-odd from its exact error (TwoSum), and
+    rounding that to fp32 gives the correctly rounded result (53 >= 24 + 2
+    bits). It runs in chunks of TRIAD_CHUNK elements to bound its fp64
+    temporaries. bf16: two bf16 roundings, product then sum."""
+    alpha = triad_alpha(alpha, b.dtype)
+    if b.dtype == torch.bfloat16:
+        return b + c * torch.tensor(alpha, dtype=torch.bfloat16)
+    out = torch.empty(b.shape, dtype=b.dtype, device=b.device)
+    flat_b, flat_c, flat_out = b.reshape(-1), c.reshape(-1), out.view(-1)
+    for i in range(0, flat_b.numel(), TRIAD_CHUNK):
+        cb = flat_b[i:i + TRIAD_CHUNK].double()
+        p = flat_c[i:i + TRIAD_CHUNK].double().mul_(alpha)   # exact
+        s = p + cb
+        bv = s - p
+        av = s - bv
+        err = cb.sub_(bv).add_(p.sub_(av))        # p + cb == s + err exactly
+        bits = s.view(torch.int64)
+        even_inexact = ((bits & 1) == 0) & (err != 0) & torch.isfinite(err)
+        toward = torch.copysign(torch.full_like(s, math.inf), err)
+        s = torch.where(even_inexact, torch.nextafter(s, toward), s)
+        flat_out[i:i + TRIAD_CHUNK] = s.float()
+    return out
+
+
+def jacobi2d_ref(a: torch.Tensor) -> torch.Tensor:
+    """One 5-point Jacobi sweep over a 2-D grid: interior cells become
+    0.2 (self + above + below + left + right), summed in fp32 in that
+    order and rounded once to a's dtype; boundary rows and columns pass
+    through (all of the grid when R or C < 3)."""
+    out = a.clone()
+    if a.shape[0] < 3 or a.shape[1] < 3:
+        return out
+    x = a.float()
+    s = x[1:-1, 1:-1] + x[:-2, 1:-1]
+    s += x[2:, 1:-1]
+    s += x[1:-1, :-2]
+    s += x[1:-1, 2:]
+    s *= torch.tensor(0.2, dtype=torch.float32)
+    out[1:-1, 1:-1] = s
+    return out

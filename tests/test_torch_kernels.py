@@ -14,13 +14,17 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import ref as jref  # noqa: E402
 from repro.kernels.flash_attention import flash_attention_pallas  # noqa: E402
+from repro.kernels.jacobi2d import jacobi2d_pallas  # noqa: E402
 from repro.kernels.mamba_scan import mamba_scan_pallas  # noqa: E402
 from repro.kernels.matmul import matmul_pallas  # noqa: E402
+from repro.kernels.stream_triad import triad_pallas  # noqa: E402
 from repro.models.attention import _attend  # noqa: E402
 from repro_torch.kernels import flash_attention as tflash  # noqa: E402
+from repro_torch.kernels import jacobi2d as tjacobi  # noqa: E402
 from repro_torch.kernels import mamba_scan as tscan  # noqa: E402
 from repro_torch.kernels import matmul as tmatmul  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels import stream_triad as ttriad  # noqa: E402
 
 DT = {"f32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}
 
@@ -201,6 +205,117 @@ def test_mamba_scan_plain_matches_pallas_bf16_x():
                                atol=2e-3)
 
 
+# ------------------------------------------------------------ STREAM triad
+# The plain triad is held to the Pallas kernel bit for bit: in fp32 XLA
+# contracts the kernel body into one FMA (the JAX triad_ref rounds twice);
+# in bf16 alpha is rounded to bf16 and the product and the sum each round.
+
+def _bits_equal(got, want):
+    np.testing.assert_array_equal(_np(got).view(np.int32),
+                                  _np(want).view(np.int32))
+
+
+@pytest.mark.parametrize("alpha", [2.5, 0.1])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("shape", [(8, 128), (256, 512), (300, 640),
+                                   (1024, 1024), (97, 130), (1, 7)])
+def test_triad_plain_matches_pallas(shape, dtype, alpha):
+    bj, bt = _both(30, shape, dtype)
+    cj, ct = _both(31, shape, dtype)
+    want = triad_pallas(bj, cj, alpha, interpret=True)
+    got = ref.triad_ref(bt, ct, alpha)
+    assert got.dtype == bt.dtype and got.shape == bt.shape
+    _bits_equal(got, want)
+    _bits_equal(ops.triad(bt, ct, alpha), want)
+
+
+def test_triad_fp32_rounds_once_where_the_jax_reference_rounds_twice():
+    bj, bt = _both(32, (256, 512))
+    cj, ct = _both(33, (256, 512))
+    want = _np(triad_pallas(bj, cj, 2.5, interpret=True))
+    assert (_np(jref.triad_ref(bj, cj, 2.5)) != want).sum() > 1000
+    _bits_equal(ref.triad_ref(bt, ct, 2.5), want)
+
+
+def test_triad_fp32_is_not_an_fp64_sum_rounded_to_fp32():
+    """b + alpha c = 1 + 3 2^-24 - 2^-70: fp64 rounds it onto the fp32
+    midpoint 1 + 3 2^-24, which ties to even upward; the exact value and
+    the Pallas kernel's FMA round down."""
+    b = np.array([[1 + 2 ** -23, 1.0, -(1 + 2 ** -23)]], np.float32)
+    c = np.full((1, 3), (2 ** 23 - 1) * 2 ** -23, np.float32)
+    alpha = (2 ** 23 + 1) * 2 ** -47     # an fp32 value
+    want = _np(triad_pallas(jnp.asarray(b), jnp.asarray(c), alpha,
+                            interpret=True))
+    got = ref.triad_ref(torch.from_numpy(b), torch.from_numpy(c), alpha)
+    _bits_equal(got, want)
+    via_fp64 = (b.astype(np.float64) + alpha * c.astype(np.float64)
+                ).astype(np.float32)
+    assert (via_fp64 != want).sum() == 2
+
+
+def test_triad_bf16_rounds_alpha_to_bf16_first():
+    """At alpha = 0.1 (not a bf16 value), alpha in fp32 and one rounding
+    (``torch.add``) each miss the Pallas kernel."""
+    bj, bt = _both(34, (256, 512), "bf16")
+    cj, ct = _both(35, (256, 512), "bf16")
+    want = triad_pallas(bj, cj, 0.1, interpret=True)
+    _bits_equal(ref.triad_ref(bt, ct, 0.1), want)
+    assert ref.triad_alpha(0.1, torch.bfloat16) != ref.triad_alpha(
+        0.1, torch.float32)
+    assert (_np(bt + 0.1 * ct) != _np(want)).sum() > 1000
+    assert (_np(torch.add(bt, ct, alpha=0.1)) != _np(want)).sum() > 1000
+
+
+# ---------------------------------------------------------------- Jacobi-2d
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("shape", [(16, 128), (256, 256), (384, 512),
+                                   (100, 128), (97, 130)])
+def test_jacobi2d_plain_matches_pallas(shape, dtype):
+    """Bit for bit. R = 97 is prime, so the Pallas kernel falls to
+    one-row blocks, each with its halo from the clamped neighbours."""
+    aj, at = _both(36, shape, dtype)
+    want = jacobi2d_pallas(aj, interpret=True)
+    got = ref.jacobi2d_ref(at)
+    assert got.dtype == at.dtype
+    _bits_equal(got, want)
+    _bits_equal(ops.jacobi2d(at), want)
+
+
+def test_jacobi2d_bf16_sums_in_fp32_where_the_jax_reference_does_not():
+    aj, at = _both(37, (256, 256), "bf16")
+    want = _np(jacobi2d_pallas(aj, interpret=True))
+    assert (_np(jref.jacobi2d_ref(aj)) != want).sum() > 1000
+    _bits_equal(ref.jacobi2d_ref(at), want)
+
+
+@pytest.mark.parametrize("shape", [(2, 5), (5, 2), (1, 1), (1, 7), (3, 3)])
+def test_jacobi2d_small_grids(shape):
+    """R or C < 3: all boundary, the output is the input; (3, 3) has one
+    interior cell."""
+    aj, at = _both(38, shape)
+    want = jacobi2d_pallas(aj, interpret=True)
+    got = ref.jacobi2d_ref(at)
+    _bits_equal(got, want)
+    if min(shape) < 3:
+        _bits_equal(got, at)
+    else:
+        x = _np(at).astype(np.float64)
+        assert got[1, 1].item() == pytest.approx(0.2 * (
+            x[1, 1] + x[0, 1] + x[2, 1] + x[1, 0] + x[1, 2]), rel=1e-6)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_jacobi2d_boundary_passes_through(dtype):
+    """As test_kernels.py's boundary test, at 64 x 128; the interior
+    changes."""
+    _, at = _both(39, (64, 128), dtype)
+    got = ref.jacobi2d_ref(at)
+    for edge in (np.s_[0], np.s_[-1], np.s_[:, 0], np.s_[:, -1]):
+        _bits_equal(got[edge], at[edge])
+    assert (_np(got[1:-1, 1:-1]) != _np(at[1:-1, 1:-1])).mean() > 0.9
+
+
 # ------------------------------------------------- dispatch, no fallback
 
 def test_ops_unknown_impl_raises():
@@ -213,6 +328,10 @@ def test_ops_unknown_impl_raises():
     _, t = _scan_inputs(1, 4, 8, 2)
     with pytest.raises(ValueError):
         ops.mamba_scan(*t, impl="bogus")
+    with pytest.raises(ValueError):
+        ops.triad(a, a, 2.5, impl="pallas")
+    with pytest.raises(ValueError):
+        ops.jacobi2d(a, impl="jnp")
 
 
 def test_ops_cuda_impl_rejects_cpu_tensors():
@@ -222,6 +341,10 @@ def test_ops_cuda_impl_rejects_cpu_tensors():
     _, t = _scan_inputs(1, 4, 8, 2)
     with pytest.raises(ValueError):
         ops.mamba_scan(*t, impl="cuda")
+    with pytest.raises(ValueError):
+        ops.triad(a, a, 2.5, impl="cuda")
+    with pytest.raises(ValueError):
+        ops.jacobi2d(a, impl="cuda")
 
 
 def test_wrappers_take_the_plain_version_on_cpu_without_launching():
@@ -229,14 +352,19 @@ def test_wrappers_take_the_plain_version_on_cpu_without_launching():
     _, b = _both(23, (32, 8))
     _, q = _both(24, (1, 2, 16, 64))
     _, t = _scan_inputs(1, 5, 8, 2)
-    before = (tmatmul.launches, tflash.launches, tscan.launches)
+    counters = (tmatmul, tflash, tscan, ttriad, tjacobi)
+    before = [m.launches for m in counters]
     np.testing.assert_array_equal(_np(tmatmul.matmul(a, b)),
                                   _np(ref.matmul_ref(a, b)))
     np.testing.assert_array_equal(_np(tflash.flash_attention(q, q, q)),
                                   _np(ref.flash_attention_ref(q, q, q)))
     for got, want in zip(tscan.mamba_scan(*t), ref.mamba_scan_ref(*t)):
         np.testing.assert_array_equal(_np(got), _np(want))
-    assert (tmatmul.launches, tflash.launches, tscan.launches) == before
+    np.testing.assert_array_equal(_np(ttriad.triad(a, a, 2.5)),
+                                  _np(ref.triad_ref(a, a, 2.5)))
+    np.testing.assert_array_equal(_np(tjacobi.jacobi2d(a)),
+                                  _np(ref.jacobi2d_ref(a)))
+    assert [m.launches for m in counters] == before
 
 
 def test_wrappers_refuse_mixed_devices():
@@ -252,3 +380,7 @@ def test_wrappers_refuse_mixed_devices():
     _, t = _scan_inputs(1, 4, 4, 4)
     with pytest.raises(ValueError):
         tscan.mamba_scan(*t[:4], meta[None])
+    with pytest.raises(ValueError):
+        ttriad.triad(a, meta, 2.5)
+    with pytest.raises(ValueError):
+        tjacobi.jacobi2d(meta)

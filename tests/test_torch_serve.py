@@ -115,7 +115,9 @@ def test_entry_points_raise_without_cuda(monkeypatch):
 # --------------------------------------------------------------- isolation
 
 def test_port_imports_no_jax_and_nothing_of_repro():
-    code = ("import sys, repro_torch.launch.serve, repro_torch.bridge\n"
+    code = ("import sys, repro_torch.launch.serve, repro_torch.bridge, "
+            "repro_torch.core, repro_torch.configs.paper_workloads, "
+            "repro_torch.kernels.ops\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro', 'ml_dtypes'))\n"
             "assert not bad, bad\n")
