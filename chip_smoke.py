@@ -8,16 +8,22 @@
    nvcc process each, all at once.
 2. Holds the matmul kernel against its plain version at every shape the
    gemma3-1b serving path gives it (decode M=4, prefill M=4096), plus
-   ragged and fp32 cases.
+   ragged and fp32 cases, the wgmma route's threshold (M = 64, 63) and
+   ragged but 16-byte aligned shapes on it. Each case asserts the route
+   it took (``matmul.route_launches``); each wgmma case also checks that
+   its tolerance rejects a zeroed and a 10 %-off output, and times the
+   mma_sync route at the same shape (``prev_ms``).
 3. Holds the flash-attention kernel against its plain version: the Pallas
    kernel's cases (KV=H, causal and not, S != T) and the model's prefill
    shapes (GQA 4:1, D=256, window 512 and global).
 4. Serves full-width gemma3-1b (random weights from seed 0): batch 4,
    1024-token prompts, 32 greedy decode tokens, through
    ``repro_torch.launch.serve``; checks that both of its kernels were
-   launched, that the kernel path is no farther from the model in fp32
-   than the plain path (``impl="torch"``), and the reduced model on the
-   card against the CPU. Then frees all of it.
+   launched, that every prefill projection took the wgmma route and
+   every decode matmul the decode route, that the kernel path is no
+   farther from the model in fp32 than the plain path (``impl="torch"``),
+   and the reduced model on the card against the CPU; times the prefill
+   PREFILL_REPEATS times more. Then frees all of it.
 5. Holds the selective-scan kernel (y and the final state) against its
    plain version: the Pallas kernel's cases, ragged S, D = 640, N of 4, 8
    and 16, and the falcon-mamba prefill shape (4, 1024, 8192, 16) with x
@@ -37,7 +43,8 @@
 
 Every time is the median over repeats, timed with CUDA events; matmul
 timings cycle through copies of B that exceed the 50 MB L2, so weights are
-read cold, as in a decode step. Per-case detail goes to
+read cold, as in a decode step, and are read after ``free_memory`` (with
+``ms_cached`` before it, as for the data kernels). Per-case detail goes to
 ``chiprun_out/chip_smoke.json``. Any failure exits non-zero.
 """
 
@@ -88,6 +95,7 @@ STREAM_SCALAR = 3.0  # STREAM's own triad scalar
 CAP_GB = 8           # the simulated device of the dos_sweep line
 PATH_RATIO = 1.5     # see compare_paths
 MARGIN = 0.25        # a top-2 logit gap that bf16 noise at full width does not close
+PREFILL_REPEATS = 5
 
 
 def smi() -> str:
@@ -204,18 +212,19 @@ def check_bits(name, got, want, max_ulp: int = 0) -> tuple[int, float]:
     return differ, err
 
 
-def timed_calls(kernel, plain, library=None) -> dict:
-    """Graph-replay ms of a data kernel, its plain version and the library
-    call. ``ms_cached`` is the kernel's time while the blocks the check
-    freed still sit in the allocator's cache; ``ms`` and the others are
-    read after ``free_memory`` hands them back to the driver. (On the H100
-    the triad and Jacobi-2d kernels read up to 12 % slower in the first
-    state: PERF.md.)"""
-    ms_cached = time_ms(kernel, [()])
+def timed_calls(kernel, plain, library=None, arg_sets=((),)) -> dict:
+    """Graph-replay ms of a kernel, its plain version and the library call,
+    each cycling through ``arg_sets``. ``ms_cached`` is the kernel's time
+    while the blocks the check freed still sit in the allocator's cache;
+    ``ms`` and the others are read after ``free_memory`` hands them back to
+    the driver. (On the H100 the triad and Jacobi-2d kernels read up to 12 %
+    slower in the first state: PERF.md.)"""
+    arg_sets = list(arg_sets)
+    ms_cached = time_ms(kernel, arg_sets)
     free_memory()
-    return dict(ms_cached=ms_cached, ms=time_ms(kernel, [()]),
-                plain_ms=time_ms(plain, [()]),
-                library_ms=None if library is None else time_ms(library, [()]))
+    return dict(ms_cached=ms_cached, ms=time_ms(kernel, arg_sets),
+                plain_ms=time_ms(plain, arg_sets),
+                library_ms=None if library is None else time_ms(library, arg_sets))
 
 
 def _grid(shape, dtype, seed):
@@ -388,33 +397,60 @@ def workloads_phase():
 
 # ------------------------------------------------------------------ matmul
 
-def matmul_case(M, K, N, bt, dtype, tag):
+def matmul_case(M, K, N, bt, dtype, tag, want_route, misalign=False):
+    """One matmul case: the route it takes (asserted), the kernel against
+    its plain version, and for the wgmma route the tolerance's power to
+    reject a wrong output and the mma_sync route's time at the same shape
+    (``prev_ms``: that route took these shapes before the wgmma route). With
+    ``misalign`` A starts 2 bytes past a 16-byte boundary."""
     from repro_torch.kernels import matmul as kmm
     from repro_torch.kernels import ref
 
     g = torch.Generator(device="cuda").manual_seed(M * 7 + N)
     a = torch.randn((M, K), generator=g, device="cuda").to(dtype)
+    if misalign:
+        a = torch.cat([a.new_zeros(1), a.flatten()])[1:].view(M, K)
     bshape = (N, K) if bt else (K, N)
     b = (torch.randn(bshape, generator=g, device="cuda") * 0.02).to(dtype)
+    before = dict(kmm.route_launches)
     got = kmm.matmul(a, b, b_transposed=bt)
+    taken = [r for r in kmm.ROUTES if kmm.route_launches[r] != before[r]]
     want = ref.matmul_ref(a, b, bt)
     torch.cuda.synchronize()
+    if taken != [want_route]:
+        raise AssertionError(f"matmul {tag} ({M}, {K}, {N}) took routes "
+                             f"{taken}, expected {want_route}")
     err = check_close(f"matmul {tag}", got, want, MM_TOL[dtype])
+    if want_route == "wgmma":
+        check_discerns(f"matmul {tag}", want, MM_TOL[dtype])
+    del got, want
     copies = max(1, math.ceil(2 * L2_BYTES / b.nbytes))
     bs = [b] + [b.clone() for _ in range(copies - 1)]
     sets = [(a, x) for x in bs]
-    ms = time_ms(lambda x, y: kmm.matmul(x, y, b_transposed=bt), sets)
-    plain = time_ms(lambda x, y: ref.matmul_ref(x, y, bt), sets)
-    lib = time_ms(lambda x, y: torch.matmul(x, y.t() if bt else y), sets)
+    row = dict(tag=tag, M=M, K=K, N=N, b_transposed=bt,
+               dtype=str(dtype).replace("torch.", ""), route=want_route,
+               misaligned=misalign, max_abs_err=err)
+    row.update(timed_calls(lambda x, y: kmm.matmul(x, y, b_transposed=bt),
+                           lambda x, y: ref.matmul_ref(x, y, bt),
+                           lambda x, y: torch.matmul(x, y.t() if bt else y),
+                           arg_sets=sets))
+    prev = ""
+    if want_route == "wgmma":
+        row["tile_n"] = kmm.wgmma_tile_n(M, N, kmm.sm_count(a.device))
+        out = torch.empty((M, N), dtype=dtype, device="cuda")
+        row["prev_ms"] = time_ms(
+            lambda x, y: kmm.launch(x, y, out, "mma_sync"), sets)
+        prev = f"  mma_sync {row['prev_ms']:.4f}"
+        del out
     del bs, sets
     nbytes = (M * K + K * N + M * N) * a.element_size()
-    bnd, by = bound_ms(nbytes, 2.0 * M * N * K, dtype)
-    row = dict(tag=tag, M=M, K=K, N=N, b_transposed=bt,
-               dtype=str(dtype).replace("torch.", ""), max_abs_err=err,
-               ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bnd, bound_by=by)
+    row["bound_ms"], row["bound_by"] = bound_ms(nbytes, 2.0 * M * N * K, dtype)
     print(f"matmul {tag:>14} M={M:<5d} K={K:<5d} N={N:<6d} bt={int(bt)} "
-          f"err={err:.2e} kernel {ms:.4f} ms  plain {plain:.4f}  "
-          f"torch.matmul {lib:.4f}  bound {bnd:.4f} ({by})", flush=True)
+          f"route={want_route}{'/' + str(row['tile_n']) if prev else ''} "
+          f"err={err:.2e} kernel {row['ms']:.4f} ms "
+          f"({row['ms_cached']:.4f} cached){prev}  plain {row['plain_ms']:.4f}  "
+          f"torch.matmul {row['library_ms']:.4f}  bound {row['bound_ms']:.4f} "
+          f"({row['bound_by']})", flush=True)
     return row
 
 
@@ -439,27 +475,39 @@ def matmul_phase(cfg):
     position only, in prefill as in decode."""
     phases = {"decode": [], "prefill": []}
     rows = []
-    for phase, M in (("decode", BATCH), ("prefill", BATCH * PROMPT)):
+    for phase, M, route in (("decode", BATCH, "decode"),
+                            ("prefill", BATCH * PROMPT, "wgmma")):
         for tag, K, N, per in projections(cfg):
-            r = matmul_case(M, K, N, False, torch.bfloat16, tag)
+            r = matmul_case(M, K, N, False, torch.bfloat16, tag, route)
             rows.append(r)
             phases[phase].append((r, per * cfg.n_layers))
         r = matmul_case(BATCH, cfg.d_model, cfg.padded_vocab,
-                        cfg.tie_embeddings, torch.bfloat16, "lm head")
+                        cfg.tie_embeddings, torch.bfloat16, "lm head", "decode")
         rows.append(r)
         phases[phase].append((r, 1))
     return rows, phases
 
 
 def matmul_edge_cases():
-    """Shapes no config gives the kernel: ragged M, N and K, and fp32."""
-    return [matmul_case(M, K, N, bt, dt, "ragged" if M != 512 else "fp32")
-            for M, K, N, bt, dt in ((37, 100, 50, False, torch.bfloat16),
-                                    (37, 100, 50, True, torch.bfloat16),
-                                    (4, 1000, 333, True, torch.bfloat16),
-                                    (130, 77, 333, False, torch.float32),
-                                    (130, 77, 333, True, torch.float32),
-                                    (512, 1152, 1024, False, torch.float32))]
+    """Shapes no config gives the kernel: ragged M, N and K, fp32, the
+    wgmma route's threshold and its ragged but 16-byte aligned shapes, and
+    a misaligned A, which takes the mma_sync route."""
+    bf = torch.bfloat16
+    return [matmul_case(M, K, N, bt, dt, tag, route, misalign=mis)
+            for M, K, N, bt, dt, tag, route, mis in (
+                (37, 100, 50, False, bf, "ragged", "mma_sync", False),
+                (37, 100, 50, True, bf, "ragged", "mma_sync", False),
+                (4, 1000, 333, True, bf, "ragged", "decode", False),
+                (130, 77, 333, False, torch.float32, "ragged", "f32", False),
+                (130, 77, 333, True, torch.float32, "ragged", "f32", False),
+                (512, 1152, 1024, False, torch.float32, "fp32", "f32", False),
+                (4100, 1160, 1032, False, bf, "ragged", "wgmma", False),
+                (136, 264, 288, False, bf, "ragged", "wgmma", False),
+                (1000, 520, 2056, False, bf, "ragged", "wgmma", False),
+                (64, 1152, 1024, False, bf, "threshold", "wgmma", False),
+                (63, 1152, 1024, False, bf, "threshold", "mma_sync", False),
+                (4096, 1152, 1024, True, bf, "transposed", "mma_sync", False),
+                (4096, 1152, 1024, False, bf, "misaligned", "mma_sync", True))]
 
 
 # --------------------------------------------------------- flash attention
@@ -640,12 +688,21 @@ def serve_phase(cfg):
         tok, _, cache, _ = serve.run_prefill(cfg, params, toks[:, :128])  # warm-up
         serve.run_decode(cfg, params, tok, cache, 2)
         del cache
+        kmm = mods["matmul"]
         for m in mods.values():
             m.launches = 0
+        kmm.route_launches.update(dict.fromkeys(kmm.ROUTES, 0))
         tok, logits, cache, pre_ms = serve.run_prefill(cfg, params, toks)
         pre_counts = {k: m.launches for k, m in mods.items()}
+        pre_routes = dict(kmm.route_launches)
         decoded, cache, dec_ms = serve.run_decode(cfg, params, tok, cache, DECODE)
         counts = {k: m.launches for k, m in mods.items()}
+        routes = {r: n - pre_routes[r] for r, n in kmm.route_launches.items()}
+        check_routes(cfg, pre_routes, routes)
+        # the first full-size prefill grows the allocator's pool; repeats
+        # show the steady state, and how far the host's dispatch spreads
+        pre_ms_again = [serve.run_prefill(cfg, params, toks)[3]
+                        for _ in range(PREFILL_REPEATS)]
         seq = torch.cat([tok] + decoded, dim=1)
         assert logits.shape == (BATCH, 1, cfg.padded_vocab), logits.shape
         assert torch.isfinite(logits.float()).all(), "non-finite prefill logits"
@@ -655,11 +712,15 @@ def serve_phase(cfg):
             raise AssertionError(f"a kernel was not launched on the main "
                                  f"path: {counts}")
         tok_s = BATCH * DECODE / (dec_ms / 1e3)
-        print(f"serve {cfg.name}: prefill {BATCH}x{PROMPT} in {pre_ms:.2f} ms; "
+        print(f"serve {cfg.name}: prefill {BATCH}x{PROMPT} in {pre_ms:.2f} ms "
+              f"(repeated: median {statistics.median(pre_ms_again):.2f}, "
+              f"{min(pre_ms_again):.2f} to {max(pre_ms_again):.2f}); "
               f"decoded {DECODE} tokens in {dec_ms:.2f} ms ({tok_s:.1f} tok/s, "
               f"{dec_ms / DECODE:.3f} ms/token); launches "
               + ", ".join(f"{k} {counts[k]} (prefill {pre_counts[k]})"
                           for k in counts), flush=True)
+        print(f"serve {cfg.name}: matmul routes, prefill {pre_routes}; "
+              f"decode {routes}", flush=True)
         print(f"serve {cfg.name}: first request continuation:",
               seq[0].tolist(), flush=True)
 
@@ -684,6 +745,8 @@ def serve_phase(cfg):
         free_memory()
         reduced = reduced_vs_cpu(cfg.name)
     return dict(arch=cfg.name, weight_bytes=weight_bytes, prefill_ms=pre_ms,
+                prefill_ms_repeated=pre_ms_again,
+                matmul_routes_prefill=pre_routes, matmul_routes_decode=routes,
                 decode_ms=dec_ms, tok_s=tok_s,
                 decode_ms_per_token=dec_ms / DECODE,
                 decode_weight_bound_ms_per_token=weight_bytes / HBM_BYTES_S * 1e3,
@@ -692,6 +755,19 @@ def serve_phase(cfg):
                 prefill_launches=pre_counts, peak_memory_bytes=peak,
                 paths_vs_fp32=paths, reduced_vs_cpu=reduced,
                 continuation=seq[0].tolist())
+
+
+def check_routes(cfg, prefill: dict, decode: dict) -> None:
+    """Every prefill projection took the wgmma route and the LM head (the
+    last position only, M = BATCH) the decode route; every decode matmul
+    took the decode route."""
+    proj = sum(per for *_, per in projections(cfg)) * cfg.n_layers
+    want_pre = dict.fromkeys(prefill, 0) | {"wgmma": proj, "decode": 1}
+    want_dec = dict.fromkeys(decode, 0) | {"decode": (proj + 1) * DECODE}
+    if prefill != want_pre or decode != want_dec:
+        raise AssertionError(f"{cfg.name}: matmul routes prefill {prefill}, "
+                             f"decode {decode}; expected {want_pre} and "
+                             f"{want_dec}")
 
 
 def rel_l2(a, b) -> float:

@@ -4,28 +4,47 @@
 // (src/repro/kernels/matmul.py:24,40), which streams (256x512)x(512x256)
 // panels through VMEM and keeps the fp32 accumulator resident across K.
 //
-// What bounds it on an H100: the model's decode projections run at M = 4
-// (the batch), so each weight byte is used for 8 flops at most; they are
-// bound by reading B from HBM (3.35 TB/s), never by the tensor cores. The
-// tied LM head reads the whole 262144x1152 embedding table (604 MB) per
-// token. Prefill runs M = batch*prompt and is bound by the tensor cores
-// (989 TFLOP/s bf16).
-//
-// What the design does about it:
-//   * bf16 runs on the tensor cores through warp-level mma.sync m16n8k16
-//     (bf16 in, fp32 accumulate); the fp32 path runs on the CUDA cores
-//     with fmaf, so it never uses TF32.
-//   * B may be given as (K, N) or as (N, K) row-major (`b_transposed`):
-//     the LM head reads the embedding table in place instead of a
-//     per-step transposed copy, which would add 604 MB of traffic.
-//   * Small M (decode) takes a 16-row tile with a deep K step (128), so
-//     each block keeps 8 KB of B in flight per step and blocks spread over
-//     N; large M takes 128x128 tiles with 8 warps of 64x32 each.
-//   * Any M, N, K: ragged tiles are zero-filled on load and masked on
-//     store; loads are 16 bytes wide where the rows are 16-byte aligned.
-// Not yet: TMA, wgmma, a multi-stage pipeline, split-K for the decode
-// shapes whose N gives fewer blocks than the card has SMs.
+// Four routes, chosen by the wrapper (kernels/matmul.py `route`) from the
+// shape, the dtype and the pointers' alignment, before the launch:
+//   * wgmma (bf16, M >= 64, B as (K, N), K and N multiples of 8, all
+//     pointers 16-byte aligned): every prefill projection. Bound by the
+//     tensor cores (989 TFLOP/s dense bf16; M = 4096 gives K*N*8 flops for
+//     K*N*2 bytes of weights). Only wgmma reaches that rate, and only if
+//     loads never stall it and shared memory can feed it, so: 128x256
+//     output tiles (128x128 where that takes fewer waves over the SMs,
+//     chosen by the wrapper), two consumer warpgroups of 64 rows issuing
+//     wgmma.m64n256k16 (or n128) on shared-memory operands with one k-tile
+//     still in flight; a producer warpgroup whose one thread keeps TMA
+//     loads of 128x64 A and 64xBN B tiles in flight in a ring of 4 (or 6)
+//     slots, each with a "full" mbarrier (bytes landed) and an "empty" one
+//     (both consumers' wgmma on it retired); setmaxnreg moves registers
+//     from the producer to the consumers. TMA writes the 128-byte swizzle
+//     that wgmma reads, and zero-fills rows and columns past M, N and K,
+//     so ragged tails need no code in the loop. B (K, N) is N-major, read
+//     with wgmma's transpose-B bit. The epilogue stages the tile in shared
+//     memory and stores whole 16-byte chunks of rows. Tiles are walked in
+//     groups of GROUP_M M-tiles, so the blocks in flight share A and B
+//     panels in L2.
+//   * decode (bf16, M <= 16): the model's decode projections run at M = 4
+//     (the batch), so each weight byte is used for 8 flops at most; they
+//     are bound by reading B from HBM (3.35 TB/s). A 16-row tile with a
+//     deep K step (128) keeps 8 KB of B in flight per step; blocks spread
+//     over N. The tied LM head (M = 4 in prefill too) reads the
+//     262144x1152 table (604 MB) as (N, K) in place (`b_transposed`).
+//   * mma_sync (bf16 shapes the wgmma route does not take: 16 < M < 64,
+//     rows not 16-byte aligned, B as (N, K)): 128x128 tiles, 8 warps of
+//     64x32 with mma.sync m16n8k16, one shared-memory stage, 16-byte
+//     loads where aligned, zero-fill and masked stores for any M, N, K.
+//   * f32: 64x64 tiles of fmaf on the CUDA cores, so it never uses TF32.
+// Not yet: split-K for the decode shapes whose N gives fewer blocks than
+// the card has SMs (x_proj, N = 288, at decode and, with 96 tiles on 132
+// SMs, at prefill); a persistent grid whose epilogue overlaps the next
+// tile's loads, with clusters sharing A and B tiles by TMA multicast.
+#include <cuda.h>
+#include <cudaTypedefs.h>
+
 #include "mma_bf16.cuh"
+#include "sm90.cuh"
 
 namespace {
 
@@ -192,6 +211,198 @@ matmul_f32(const float* __restrict__ A, const float* __restrict__ B,
   }
 }
 
+// ---------------------------------------------------------------- wgmma
+
+namespace wg {
+constexpr int BM = 128, BK = 64;       // BK * 2 bytes = the 128-byte swizzle
+constexpr int THREADS = 384;           // a producer and two consumer warpgroups
+constexpr int GROUP_M = 16;            // M-tiles walked together over N
+constexpr int A_BYTES = BM * BK * 2;   // 16 KB: 128 rows of 128 bytes
+constexpr int B_BOX = BK * 64 * 2;     // 8 KB: 64 k-rows of 64 columns
+// ring slots: 4 x 48 KB for 128x256 tiles, 6 x 32 KB for 128x128
+__host__ __device__ constexpr int stages(int bn) { return bn == 256 ? 4 : 6; }
+__host__ __device__ constexpr int smem_bytes(int bn) {
+  return stages(bn) * (A_BYTES + bn / 64 * B_BOX) + 1024;  // + room to align
+}
+}  // namespace wg
+
+// One 128xBN tile of C per block. Warpgroup 0 produces: one thread keeps
+// the ring full with TMA loads, each slot's "full" mbarrier counting the
+// bytes in, its "empty" one counting the consumers out. Warpgroups 1 and 2
+// consume 64 rows each with wgmma, keeping one k-tile's wgmma in flight
+// while they issue the next; registers move from producer to consumers
+// with setmaxnreg.
+template <int BN>
+__global__ void __launch_bounds__(wg::THREADS, 1)
+matmul_wgmma(const __grid_constant__ CUtensorMap ta,
+             const __grid_constant__ CUtensorMap tb, bf16* __restrict__ C,
+             int M, int N, int K) {
+  using namespace wg;
+  constexpr int STAGES = stages(BN);
+  constexpr int STAGE_BYTES = A_BYTES + BN / 64 * B_BOX;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  __shared__ __align__(8) uint64_t full[STAGES], empty[STAGES];
+
+  const int tid = threadIdx.x;
+  const int tiles_m = (M + BM - 1) / BM, tiles_n = (N + BN - 1) / BN;
+  const int group = GROUP_M * tiles_n;
+  const int first_m = (blockIdx.x / group) * GROUP_M;
+  const int rows_m = min(tiles_m - first_m, GROUP_M);
+  const int m0 = (first_m + (blockIdx.x % group) % rows_m) * BM;
+  const int n0 = ((blockIdx.x % group) / rows_m) * BN;
+  const int KT = (K + BK - 1) / BK;
+
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], 2);  // one arrival per consumer warpgroup
+    }
+    sm90::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (tid < 128) {  // producer
+    sm90::setmaxnreg_dec<40>();
+    if (tid == 0) {
+      for (int kt = 0; kt < KT; ++kt) {
+        const int s = kt % STAGES;
+        uint8_t* a = smem + s * STAGE_BYTES;
+        if (kt >= STAGES)  // the slot's previous k-tile has retired
+          sm90::mbar_wait(&empty[s], (kt / STAGES - 1) & 1);
+        sm90::mbar_arrive_expect_tx(&full[s], STAGE_BYTES);
+        sm90::tma_load_2d(a, &ta, &full[s], kt * BK, m0);
+#pragma unroll
+        for (int j = 0; j < BN / 64; ++j)
+          sm90::tma_load_2d(a + A_BYTES + j * B_BOX, &tb, &full[s],
+                            n0 + 64 * j, kt * BK);
+      }
+    }
+    return;
+  }
+  sm90::setmaxnreg_inc<232>();
+  const int w = tid / 128 - 1, t = tid % 128;  // consumer warpgroup, thread
+
+  float acc[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+
+  for (int kt = 0; kt < KT; ++kt) {
+    const int s = kt % STAGES;
+    sm90::mbar_wait(&full[s], (kt / STAGES) & 1);
+    __syncwarp();
+    const uint32_t a_base =
+        sm90::smem_u32(smem + s * STAGE_BYTES) + w * (64 * BK * 2);
+    const uint32_t b_base = sm90::smem_u32(smem + s * STAGE_BYTES + A_BYTES);
+    sm90::fence_regs(acc);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)  // A: 32 bytes along the row; B: 16 k-rows
+      sm90::wgmma_m64k16<BN, 1>(
+          acc, sm90::desc_sw128(a_base + kk * 32, 16, 1024),
+          sm90::desc_sw128(b_base + kk * 16 * 128, B_BOX, 1024));
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<1>();  // the previous k-tile's wgmma has retired
+    sm90::fence_regs(acc);
+    if (t == 0 && kt > 0) sm90::mbar_arrive(&empty[(kt - 1) % STAGES]);
+  }
+  sm90::wgmma_wait<0>();
+  sm90::fence_regs(acc);
+
+  // Epilogue through shared memory, so that each row leaves in 16-byte
+  // stores; masked on M and N (N is a multiple of 8 on this route, so a
+  // 16-byte chunk never straddles it).
+  constexpr int P = BN + 8;  // row pitch in bf16: rows land 4 banks apart
+  bf16* tile = reinterpret_cast<bf16*>(smem) + w * 64 * P;
+  const int lane = t % 32, r0 = (t / 32) * 16 + lane / 4;
+  sm90::bar_sync(1, 256);  // both consumers are done with the ring
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<__nv_bfloat162*>(tile + (r0 + 8 * h) * P + j * 8 +
+                                         2 * (lane % 4)) =
+          __floats2bfloat162_rn(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+  sm90::bar_sync(2 + w, 128);
+#pragma unroll 4
+  for (int c = t; c < 64 * BN / 8; c += 128) {
+    const int r = c / (BN / 8), cc = (c % (BN / 8)) * 8;
+    const int row = m0 + w * 64 + r, col = n0 + cc;
+    if (row < M && col < N)
+      *reinterpret_cast<uint4*>(C + (size_t)row * N + col) =
+          *reinterpret_cast<const uint4*>(tile + r * P + cc);
+  }
+}
+
+// cuTensorMapEncodeTiled from the driver, found at run time so that the
+// library links against the runtime only
+PFN_cuTensorMapEncodeTiled_v12000 encode_fn() {
+  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
+  }
+  return fn;
+}
+
+// A 2-D row-major bf16 tensor of `rows` x `cols` read in boxes of
+// box_rows x box_cols, 128-byte swizzled, zeros past the edge.
+CUresult encode_2d(CUtensorMap* map, const void* ptr, uint64_t rows,
+                   uint64_t cols, uint32_t box_rows, uint32_t box_cols) {
+  const cuuint64_t dims[2] = {cols, rows};
+  const cuuint64_t strides[1] = {cols * 2};
+  const cuuint32_t box[2] = {box_cols, box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  return encode_fn()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                     const_cast<void*>(ptr), dims, strides, box, elem,
+                     CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                     CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                     CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+template <int BN>
+int launch_wgmma_tile(const CUtensorMap& ta, const CUtensorMap& tb, void* c,
+                      int M, int N, int K, cudaStream_t s) {
+  static bool sized = false;  // once per tile width
+  if (!sized) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(matmul_wgmma<BN>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             wg::smem_bytes(BN));
+    if (e != cudaSuccess) return e;
+    sized = true;
+  }
+  const long long tiles =
+      (long long)((M + wg::BM - 1) / wg::BM) * ((N + BN - 1) / BN);
+  if (tiles > INT32_MAX) return cudaErrorInvalidConfiguration;
+  matmul_wgmma<BN><<<(unsigned)tiles, wg::THREADS, wg::smem_bytes(BN), s>>>(
+      ta, tb, static_cast<bf16*>(c), M, N, K);
+  return cudaGetLastError();
+}
+
+// Returns a cudaError_t, or -(CUresult) when a tensor map cannot be made.
+int launch_wgmma(const void* a, const void* b, void* c, int M, int N, int K,
+                 int tile_n, cudaStream_t s) {
+  if (tile_n != 128 && tile_n != 256) return cudaErrorInvalidValue;
+  if (!encode_fn()) return cudaErrorNotSupported;
+  CUtensorMap ta, tb;
+  CUresult r = encode_2d(&ta, a, M, K, wg::BM, wg::BK);
+  if (r == CUDA_SUCCESS) r = encode_2d(&tb, b, K, N, wg::BK, 64);
+  if (r != CUDA_SUCCESS) return -static_cast<int>(r);
+  return tile_n == 256 ? launch_wgmma_tile<256>(ta, tb, c, M, N, K, s)
+                       : launch_wgmma_tile<128>(ta, tb, c, M, N, K, s);
+}
+
 template <int BM, int BN, int BK, int WM, int WN, bool BT>
 cudaError_t launch_bf16(const void* a, const void* b, void* c, int M, int N,
                         int K, cudaStream_t s) {
@@ -203,9 +414,9 @@ cudaError_t launch_bf16(const void* a, const void* b, void* c, int M, int N,
 }
 
 template <bool BT>
-cudaError_t launch_bf16_for(const void* a, const void* b, void* c, int M,
-                            int N, int K, cudaStream_t s) {
-  if (M <= 16)  // decode: one 16-row tile, deep K steps
+cudaError_t launch_mma_sync(int route, const void* a, const void* b, void* c,
+                            int M, int N, int K, cudaStream_t s) {
+  if (route == 1)  // decode: one 16-row tile, deep K steps
     return launch_bf16<16, 32, 128, 1, 4, BT>(a, b, c, M, N, K, s);
   return launch_bf16<128, 128, 32, 2, 4, BT>(a, b, c, M, N, K, s);
 }
@@ -222,15 +433,27 @@ cudaError_t launch_f32(const void* a, const void* b, void* c, int M, int N,
 
 }  // namespace
 
-// Returns the cudaError_t of the launch (0 on success). The caller has
-// checked shapes, dtypes, contiguity and M, N > 0.
+// Launches the route the caller chose (kernels/matmul.py ROUTES: 0 f32,
+// 1 decode, 2 mma_sync, 3 wgmma with tiles `tile_n` columns wide) and
+// returns the cudaError_t of the launch (0 on success), or -(CUresult)
+// when a TMA tensor map cannot be made. The caller has checked shapes,
+// dtypes, contiguity, M, N > 0 and that the route takes the operands.
 extern "C" int repro_matmul(const void* a, const void* b, void* c, int M,
-                            int N, int K, int b_transposed, int is_bf16,
-                            void* stream) {
+                            int N, int K, int b_transposed, int route,
+                            int tile_n, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return b_transposed ? launch_bf16_for<true>(a, b, c, M, N, K, s)
-                        : launch_bf16_for<false>(a, b, c, M, N, K, s);
-  return b_transposed ? launch_f32<true>(a, b, c, M, N, K, s)
-                      : launch_f32<false>(a, b, c, M, N, K, s);
+  switch (route) {
+    case 0:
+      return b_transposed ? launch_f32<true>(a, b, c, M, N, K, s)
+                          : launch_f32<false>(a, b, c, M, N, K, s);
+    case 1:
+    case 2:
+      return b_transposed
+                 ? launch_mma_sync<true>(route, a, b, c, M, N, K, s)
+                 : launch_mma_sync<false>(route, a, b, c, M, N, K, s);
+    case 3:
+      if (b_transposed) return cudaErrorInvalidValue;
+      return launch_wgmma(a, b, c, M, N, K, tile_n, s);
+  }
+  return cudaErrorInvalidValue;
 }

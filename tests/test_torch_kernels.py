@@ -4,6 +4,10 @@ JAX package's Pallas kernels in interpret mode and its model attention,
 plus the dispatch and the no-fallback rules of the wrappers. The CUDA
 kernels themselves run only on the card (``python3 chip_smoke.py``)."""
 
+import os
+import subprocess
+import sys
+
 import numpy as np
 import pytest
 
@@ -19,6 +23,7 @@ from repro.kernels.mamba_scan import mamba_scan_pallas  # noqa: E402
 from repro.kernels.matmul import matmul_pallas  # noqa: E402
 from repro.kernels.stream_triad import triad_pallas  # noqa: E402
 from repro.models.attention import _attend  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import flash_attention as tflash  # noqa: E402
 from repro_torch.kernels import jacobi2d as tjacobi  # noqa: E402
 from repro_torch.kernels import mamba_scan as tscan  # noqa: E402
@@ -83,6 +88,145 @@ def test_ops_matmul_flattens_leading_dims():
     assert out.shape == (2, 3, 32)
     np.testing.assert_array_equal(_np(out.reshape(6, 32)),
                                   _np(ref.matmul_ref(a.reshape(6, 64), b)))
+
+
+@pytest.mark.parametrize("mnk", [(136, 288, 264), (64, 1024, 1152),
+                                 (200, 264, 520)])
+def test_matmul_plain_matches_pallas_at_wgmma_route_shapes(mnk):
+    """Ragged but 16-byte aligned bf16 shapes, and M at the wgmma route's
+    threshold: the plain version the card holds that route against."""
+    m, n, k = mnk
+    aj, at = _both(30, (m, k), "bf16")
+    bj, bt = _both(31, (k, n), "bf16", scale=0.02)
+    want = matmul_pallas(aj, bj, interpret=True)
+    got = ref.matmul_ref(at, bt)
+    np.testing.assert_allclose(_np(got), _np(want), **_mm_tol("bf16"))
+
+
+# the serving shapes: every projection of a layer as (tag, K, N), from the
+# configs as chip_smoke.py's ``projections`` reads them
+def _projections(arch):
+    cfg = get_config(arch)
+    d = cfg.d_model
+    if cfg.attention_free:
+        di = cfg.d_inner
+        return cfg, [("in_proj", d, 2 * di),
+                     ("x_proj", di, cfg.resolved_dt_rank + 2 * cfg.ssm_state),
+                     ("dt_proj", cfg.resolved_dt_rank, di), ("out_proj", di, d)]
+    hd = cfg.resolved_head_dim
+    nq, nkv = cfg.n_heads * hd, cfg.n_kv_heads * hd
+    return cfg, [("wq", d, nq), ("wk", d, nkv), ("wi", d, cfg.d_ff),
+                 ("attn_wo", nq, d), ("mlp_wo", cfg.d_ff, d)]
+
+
+def _serve_cases():
+    """(id, M, K, N, b_transposed, route) of every matmul of both served
+    configs: prefill (batch 4 x 1024 tokens) and its 128-token warm-up,
+    decode (M = batch = 4), and the LM head on the last position."""
+    cases = []
+    for arch in ("gemma3-1b", "falcon-mamba-7b"):
+        cfg, proj = _projections(arch)
+        for tag, k, n in proj:
+            cases += [(f"{arch}-{tag}-prefill", 4 * 1024, k, n, False, "wgmma"),
+                      (f"{arch}-{tag}-warmup", 4 * 128, k, n, False, "wgmma"),
+                      (f"{arch}-{tag}-decode", 4, k, n, False, "decode")]
+        cases.append((f"{arch}-lm_head", 4, cfg.d_model, cfg.padded_vocab,
+                       cfg.tie_embeddings, "decode"))
+    return cases
+
+
+_ALIGNED = (0x7F0000000000, 0x7F0000100000, 0x7F0000200000)
+_SERVE_CASES = _serve_cases()
+
+
+@pytest.mark.parametrize("case", _SERVE_CASES, ids=[c[0] for c in _SERVE_CASES])
+def test_matmul_route_of_every_serving_shape(case):
+    """Prefill projections take the wgmma route; decode and the LM head
+    take the decode route."""
+    _, M, K, N, bt, want = case
+    assert tmatmul.route(M, N, K, bt, torch.bfloat16, _ALIGNED) == want
+
+
+@pytest.mark.parametrize("case", [
+    # (M, K, N), b_transposed, pointers, route; bf16 unless the route is f32
+    ((4100, 1160, 1032), False, _ALIGNED, "wgmma"),      # ragged, aligned
+    ((136, 264, 288), False, _ALIGNED, "wgmma"),
+    ((1000, 520, 2056), False, _ALIGNED, "wgmma"),
+    ((64, 1152, 1024), False, _ALIGNED, "wgmma"),        # the threshold
+    ((63, 1152, 1024), False, _ALIGNED, "mma_sync"),     # just below it
+    ((17, 1152, 1024), False, _ALIGNED, "mma_sync"),
+    ((16, 1152, 1024), False, _ALIGNED, "decode"),
+    ((37, 100, 50), False, _ALIGNED, "mma_sync"),        # chip_smoke's ragged
+    ((37, 100, 50), True, _ALIGNED, "mma_sync"),
+    ((4, 1000, 333), True, _ALIGNED, "decode"),
+    ((4096, 1152, 1024), True, _ALIGNED, "mma_sync"),    # B as (N, K)
+    ((4096, 1004, 1024), False, _ALIGNED, "mma_sync"),   # K*2 not 16-byte
+    ((4096, 1152, 1028), False, _ALIGNED, "mma_sync"),   # N*2 not 16-byte
+    ((4096, 0, 1024), False, _ALIGNED, "mma_sync"),      # no K: no tensor map
+    ((4096, 1152, 1024), False,                          # A 2 bytes off
+     (_ALIGNED[0] + 2,) + _ALIGNED[1:], "mma_sync"),
+    ((4096, 1152, 1024), False,                          # B 8 bytes off
+     (_ALIGNED[0], _ALIGNED[1] + 8, _ALIGNED[2]), "mma_sync"),
+    ((4096, 1152, 1024), False,                          # C 4 bytes off
+     _ALIGNED[:2] + (_ALIGNED[2] + 4,), "mma_sync"),
+    ((4, 1152, 1024), False, _ALIGNED, "f32"),           # fp32: CUDA cores
+    ((4096, 4096, 16384), False, _ALIGNED, "f32"),
+    ((4096, 4096, 16384), True, _ALIGNED, "f32"),
+    ((130, 77, 333), False, _ALIGNED, "f32"),
+    ((130, 77, 333), True, _ALIGNED, "f32"),
+], ids=lambda c: f"{c[0]}-bt{int(c[1])}-{c[3]}")
+def test_matmul_route_of_edge_shapes(case):
+    (M, K, N), bt, ptrs, want = case
+    dtype = torch.float32 if want == "f32" else torch.bfloat16
+    assert tmatmul.route(M, N, K, bt, dtype, ptrs) == want
+
+
+@pytest.mark.parametrize("mn_tile", [
+    ((4096, 16384), 256), ((4096, 4096), 256), ((4096, 8192), 256),
+    ((4096, 6912), 256), ((4096, 1024), 256), ((4096, 1152), 128),
+    ((4096, 288), 128), ((4096, 256), 128), ((4100, 1032), 128),
+    ((136, 288), 128), ((64, 1024), 128), ((1000, 2056), 256)])
+def test_wgmma_tile_width_takes_the_fewer_waves(mn_tile):
+    """On 132 SMs: 256 columns a tile unless 128 takes fewer waves of
+    blocks for the same columns."""
+    (M, N), want = mn_tile
+    assert tmatmul.wgmma_tile_n(M, N, 132) == want
+    waves = {bn: -(-(-(-M // 128) * -(-N // bn)) // 132) for bn in (128, 256)}
+    other = 384 - want
+    assert waves[want] * want <= waves[other] * other
+
+
+@pytest.mark.parametrize("which, dtype, bt", [
+    ("f32", torch.bfloat16, False), ("decode", torch.float32, False),
+    ("mma_sync", torch.float32, False), ("wgmma", torch.bfloat16, True),
+    ("wgmma", torch.float32, False)])
+def test_matmul_launch_refuses_a_route_that_cannot_take_the_operands(
+        which, dtype, bt):
+    """Checked before anything is built or launched."""
+    a = torch.zeros((128, 64), dtype=dtype)
+    b = torch.zeros((64, 64), dtype=dtype)
+    out = torch.empty((128, 64), dtype=dtype)
+    before = tmatmul.launches, dict(tmatmul.route_launches), tmatmul._fn
+    with pytest.raises(ValueError):
+        tmatmul.launch(a, b, out, which, b_transposed=bt)
+    assert (tmatmul.launches, tmatmul.route_launches, tmatmul._fn) == before
+
+
+def test_matmul_module_imports_without_a_cuda_toolkit():
+    """Importing the wrapper and choosing a route build nothing: no nvcc on
+    PATH and no CUDA_HOME."""
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("CUDA_HOME", "CUDA_PATH")}
+    env["PATH"] = os.path.dirname(sys.executable)
+    code = ("import torch\n"
+            "from repro_torch.kernels import build, matmul\n"
+            "r = matmul.route(4096, 1024, 1152, False, torch.bfloat16, (0, 16, 32))\n"
+            "assert r == 'wgmma' and not build._loaded and matmul._fn is None\n"
+            "assert matmul.launches == 0 and set(matmul.route_launches.values()) == {0}\n"
+            "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], env=env, text=True,
+                         capture_output=True, timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
 
 
 # --------------------------------------------------------- flash attention
