@@ -9,10 +9,13 @@
 2. Holds the matmul kernel against its plain version at every shape the
    gemma3-1b serving path gives it (decode M=4, prefill M=4096), plus
    ragged and fp32 cases, the wgmma route's threshold (M = 64, 63) and
-   ragged but 16-byte aligned shapes on it. Each case asserts the route
-   it took (``matmul.route_launches``); each wgmma case also checks that
-   its tolerance rejects a zeroed and a 10 %-off output, and times the
-   mma_sync route at the same shape (``prev_ms``).
+   ragged but 16-byte aligned shapes on it, and decode cases at M = 1
+   and 16, K = 8190, odd N, misaligned A and both B layouts. Each case
+   asserts the route it took (``matmul.route_launches``), that a second
+   call gives the same bits, and that its tolerance rejects a zeroed and
+   a 10 %-off output; it prints its share of the bound. Each wgmma case
+   times the mma_sync route at the same shape (``prev_ms``); each decode
+   case prints its tile width and K-slices (``decode_split``).
 3. Holds the flash-attention kernel against its plain version: the Pallas
    kernel's cases (KV=H, causal and not, S != T) and the model's prefill
    shapes (GQA 4:1, D=256, window 512 and global).
@@ -399,10 +402,12 @@ def workloads_phase():
 
 def matmul_case(M, K, N, bt, dtype, tag, want_route, misalign=False):
     """One matmul case: the route it takes (asserted), the kernel against
-    its plain version, and for the wgmma route the tolerance's power to
-    reject a wrong output and the mma_sync route's time at the same shape
-    (``prev_ms``: that route took these shapes before the wgmma route). With
-    ``misalign`` A starts 2 bytes past a 16-byte boundary."""
+    its plain version, a second call's bits against the first's, the
+    tolerance's power to reject a wrong output; for the wgmma route the
+    mma_sync route's time at the same shape (``prev_ms``: that route took
+    these shapes before the wgmma route), for the decode route its tile
+    width and K-slices. With ``misalign`` A starts 2 bytes past a 16-byte
+    boundary."""
     from repro_torch.kernels import matmul as kmm
     from repro_torch.kernels import ref
 
@@ -414,6 +419,7 @@ def matmul_case(M, K, N, bt, dtype, tag, want_route, misalign=False):
     b = (torch.randn(bshape, generator=g, device="cuda") * 0.02).to(dtype)
     before = dict(kmm.route_launches)
     got = kmm.matmul(a, b, b_transposed=bt)
+    again = kmm.matmul(a, b, b_transposed=bt)
     taken = [r for r in kmm.ROUTES if kmm.route_launches[r] != before[r]]
     want = ref.matmul_ref(a, b, bt)
     torch.cuda.synchronize()
@@ -421,9 +427,11 @@ def matmul_case(M, K, N, bt, dtype, tag, want_route, misalign=False):
         raise AssertionError(f"matmul {tag} ({M}, {K}, {N}) took routes "
                              f"{taken}, expected {want_route}")
     err = check_close(f"matmul {tag}", got, want, MM_TOL[dtype])
-    if want_route == "wgmma":
-        check_discerns(f"matmul {tag}", want, MM_TOL[dtype])
-    del got, want
+    check_discerns(f"matmul {tag}", want, MM_TOL[dtype])
+    if not torch.equal(got, again):
+        raise AssertionError(f"matmul {tag} ({M}, {K}, {N}): two calls on "
+                             f"the same inputs differ")
+    del got, again, want
     copies = max(1, math.ceil(2 * L2_BYTES / b.nbytes))
     bs = [b] + [b.clone() for _ in range(copies - 1)]
     sets = [(a, x) for x in bs]
@@ -434,23 +442,28 @@ def matmul_case(M, K, N, bt, dtype, tag, want_route, misalign=False):
                            lambda x, y: ref.matmul_ref(x, y, bt),
                            lambda x, y: torch.matmul(x, y.t() if bt else y),
                            arg_sets=sets))
-    prev = ""
+    prev = shape = ""
     if want_route == "wgmma":
         row["tile_n"] = kmm.wgmma_tile_n(M, N, kmm.sm_count(a.device))
+        shape = f"/{row['tile_n']}"
         out = torch.empty((M, N), dtype=dtype, device="cuda")
         row["prev_ms"] = time_ms(
             lambda x, y: kmm.launch(x, y, out, "mma_sync"), sets)
         prev = f"  mma_sync {row['prev_ms']:.4f}"
         del out
+    elif want_route == "decode":
+        row["tile_n"] = kmm.decode_tile_n(N, K)
+        row["split"] = kmm.decode_split(N, K, kmm.sm_count(a.device))
+        shape = f"/{row['tile_n']} split={row['split']}"
     del bs, sets
     nbytes = (M * K + K * N + M * N) * a.element_size()
     row["bound_ms"], row["bound_by"] = bound_ms(nbytes, 2.0 * M * N * K, dtype)
+    row["bound_share"] = row["bound_ms"] / row["ms"]
     print(f"matmul {tag:>14} M={M:<5d} K={K:<5d} N={N:<6d} bt={int(bt)} "
-          f"route={want_route}{'/' + str(row['tile_n']) if prev else ''} "
-          f"err={err:.2e} kernel {row['ms']:.4f} ms "
+          f"route={want_route}{shape} err={err:.2e} kernel {row['ms']:.4f} ms "
           f"({row['ms_cached']:.4f} cached){prev}  plain {row['plain_ms']:.4f}  "
           f"torch.matmul {row['library_ms']:.4f}  bound {row['bound_ms']:.4f} "
-          f"({row['bound_by']})", flush=True)
+          f"({row['bound_by']}; share {row['bound_share']:.2f})", flush=True)
     return row
 
 
@@ -490,14 +503,25 @@ def matmul_phase(cfg):
 
 def matmul_edge_cases():
     """Shapes no config gives the kernel: ragged M, N and K, fp32, the
-    wgmma route's threshold and its ragged but 16-byte aligned shapes, and
-    a misaligned A, which takes the mma_sync route."""
+    wgmma route's threshold and its ragged but 16-byte aligned shapes, a
+    misaligned A, which takes the mma_sync route at M = 4096; and on the
+    decode route M = 1 and 16, rows not 16-byte aligned (K = 8190 with B
+    as (N, K), odd N with B as (K, N), a misaligned A), and ragged edges
+    of 32- and 64-wide tiles."""
     bf = torch.bfloat16
     return [matmul_case(M, K, N, bt, dt, tag, route, misalign=mis)
             for M, K, N, bt, dt, tag, route, mis in (
                 (37, 100, 50, False, bf, "ragged", "mma_sync", False),
                 (37, 100, 50, True, bf, "ragged", "mma_sync", False),
                 (4, 1000, 333, True, bf, "ragged", "decode", False),
+                (1, 8190, 1024, False, bf, "M=1", "decode", False),
+                (1, 8192, 288, False, bf, "M=1", "decode", False),
+                (16, 8190, 1024, True, bf, "M=16", "decode", False),
+                (16, 6912, 1152, False, bf, "M=16", "decode", False),
+                (4, 4096, 333, False, bf, "odd N", "decode", False),
+                (4, 1152, 1024, False, bf, "misaligned", "decode", True),
+                (7, 4104, 4104, True, bf, "ragged wide", "decode", False),
+                (16, 4096, 4100, False, bf, "ragged wide", "decode", False),
                 (130, 77, 333, False, torch.float32, "ragged", "f32", False),
                 (130, 77, 333, True, torch.float32, "ragged", "f32", False),
                 (512, 1152, 1024, False, torch.float32, "fp32", "f32", False),

@@ -25,21 +25,40 @@
 //     memory and stores whole 16-byte chunks of rows. Tiles are walked in
 //     groups of GROUP_M M-tiles, so the blocks in flight share A and B
 //     panels in L2.
-//   * decode (bf16, M <= 16): the model's decode projections run at M = 4
-//     (the batch), so each weight byte is used for 8 flops at most; they
-//     are bound by reading B from HBM (3.35 TB/s). A 16-row tile with a
-//     deep K step (128) keeps 8 KB of B in flight per step; blocks spread
-//     over N. The tied LM head (M = 4 in prefill too) reads the
-//     262144x1152 table (604 MB) as (N, K) in place (`b_transposed`).
+//   * decode (bf16, M <= 16): the decode projections run at M = 4 (the
+//     batch), so a weight byte serves 16 flops at most and the route is
+//     bound by reading B from HBM once (3.35 TB/s). By Little's law that
+//     takes about 3.3 MB in flight (1 us of latency x 3.35 TB/s), 25 KB
+//     an SM. `matmul_decode`: a block takes one tile of C's columns and
+//     one slice of K. Tiles are 32 columns wide, or 64 for weights of 32
+//     MiB and more, whose long streams gain more from 128-byte rows than
+//     from more tiles (`decode_tile_n` in the wrapper). Split-K
+//     (`decode_split`) cuts K into as many slices as give about two
+//     blocks an SM where the tiles alone give fewer than one (x_proj, N =
+//     288: 26 slices; the LM heads: 1). Each block streams its slice
+//     through a ring of 64-deep K-steps, 7 steps (28 KB of B; 64 wide, 5
+//     and 40 KB) in flight, by 16-byte cp.async with zero-fill, B's lines
+//     marked evict-first in the L2. Not TMA: decode operands need not be
+//     16-byte aligned (K = 8190, odd N, a sliced A), and a misaligned
+//     operand is staged element by element into the same ring. Four
+//     warps each take 16 k of every 64 on the tensor cores (at M = 16,
+//     FMA on the CUDA cores would need 80 % of their rate): mma.sync
+//     m16n8k16 with A's rows past M read from a row of zeros, fragments
+//     by ldmatrix, .trans for B as (K, N); the tied LM head's (N, K)
+//     table is read in place (`b_transposed`). A tile's slices leave fp32
+//     partials in a workspace; the last block to arrive (a per-tile
+//     counter: __threadfence, atomicAdd) sums them in slice order, rounds
+//     once to bf16 and resets the counter to 0, in the same launch. So
+//     the output is bit-identical from call to call and needs no memset.
 //   * mma_sync (bf16 shapes the wgmma route does not take: 16 < M < 64,
 //     rows not 16-byte aligned, B as (N, K)): 128x128 tiles, 8 warps of
 //     64x32 with mma.sync m16n8k16, one shared-memory stage, 16-byte
 //     loads where aligned, zero-fill and masked stores for any M, N, K.
 //   * f32: 64x64 tiles of fmaf on the CUDA cores, so it never uses TF32.
-// Not yet: split-K for the decode shapes whose N gives fewer blocks than
-// the card has SMs (x_proj, N = 288, at decode and, with 96 tiles on 132
-// SMs, at prefill); a persistent grid whose epilogue overlaps the next
-// tile's loads, with clusters sharing A and B tiles by TMA multicast.
+// Not yet: a persistent grid or stream-K for the wgmma route's shapes
+// with few tiles (x_proj, N = 288: 96 tiles on 132 SMs; N = 1152), whose
+// epilogue would overlap the next tile's loads, with clusters sharing A
+// and B tiles by TMA multicast.
 #include <cuda.h>
 #include <cudaTypedefs.h>
 
@@ -154,6 +173,227 @@ matmul_bf16(const bf16* __restrict__ A, const bf16* __restrict__ B,
         }
       }
     }
+}
+
+// ---------------------------------------------------------------- decode
+
+namespace dec {
+constexpr int BK = 64;               // the K-step: one slot of the ring
+constexpr int THREADS = 128;         // 4 warps: warp w takes k 16w..16w+15
+constexpr int WARPS = THREADS / 32;  //   of every 64 of a step
+// bf16 row pitches (A's, and B's below) padded by 16 bytes, so that the 8
+// rows of one ldmatrix phase fall in 8 different bank groups
+constexpr int A_LD = BK + 8;
+constexpr int A_BYTES = 16 * A_LD * 2;
+constexpr int RED_BATCH = 16;        // partials a thread loads at once
+// ring slots for a tile BN wide (32 or 64): STAGES - 1 steps in flight,
+// 28 or 40 KB of B; 58 or 68 KB of shared memory, 3 blocks an SM
+__host__ __device__ constexpr int stages(int bn) { return bn == 32 ? 8 : 6; }
+// B's slot: Bs[n][k] when B is given as (N, K), else Bs[k][n]
+__host__ __device__ constexpr int b_ld(int bn, bool bt) {
+  return bt ? A_LD : bn + 8;
+}
+__host__ __device__ constexpr int stage_bytes(int bn, bool bt) {
+  return A_BYTES + (bt ? bn : BK) * b_ld(bn, bt) * 2;
+}
+__host__ __device__ constexpr int smem_bytes(int bn, bool bt) {
+  return stages(bn) * stage_bytes(bn, bt) + 16;  // + one row of zeros for A
+}
+}  // namespace dec
+
+// 8 bf16 at src into shared memory at dst, zeros past the first n (n may
+// be <= 0 or > 8): one cp.async where `vec` says the operand's rows are
+// 16-byte aligned (`base` stands in for src when nothing is read), with
+// the L2 `policy` when STREAM; else element by element.
+template <bool STREAM = false>
+__device__ __forceinline__ void stage8(bf16* dst, const bf16* src, int n,
+                                       bool vec, const bf16* base,
+                                       uint64_t policy = 0) {
+  n = max(0, min(n, 8));
+  if (vec) {
+    if constexpr (STREAM)
+      cp_async16_hint(sm90::smem_u32(dst), n ? src : base, 2 * n, policy);
+    else
+      cp_async16(sm90::smem_u32(dst), n ? src : base, 2 * n);
+    return;
+  }
+#pragma unroll
+  for (int e = 0; e < 8; ++e)
+    dst[e] = e < n ? src[e] : __float2bfloat16_rn(0.f);
+}
+
+// C (M <= 16, N) = A @ B for one BN-column tile (blockIdx.x) and one K-slice
+// (blockIdx.y of gridDim.y, each ceil(steps / slices) K-steps long, the
+// last shorter). With one slice the block writes C; with more, each writes
+// its fp32 partial to ws[slice][M][N], and the last of the tile's blocks
+// to arrive sums the partials in slice order into C and resets the tile's
+// counter in `arrivals` to 0.
+template <int BN, bool BT>
+__global__ void __launch_bounds__(dec::THREADS)
+matmul_decode(const bf16* __restrict__ A, const bf16* __restrict__ B,
+              bf16* __restrict__ C, float* __restrict__ ws,
+              int* __restrict__ arrivals, int M, int N, int K) {
+  using namespace dec;
+  constexpr int STAGES = stages(BN), B_LD = b_ld(BN, BT);
+  constexpr int STAGE = stage_bytes(BN, BT);
+  constexpr int NG = BN / 8;          // mma n-groups of the tile
+  constexpr int RED_LD = BN + 1;      // fp32 pitch of the warps' partials
+  static_assert(BK % (16 * WARPS) == 0 && BN % 16 == 0 && THREADS % BN == 0,
+                "tiling");
+  static_assert(WARPS * 16 * RED_LD * 4 <= STAGES * STAGE,
+                "the warps' partial tiles reuse the ring");
+  extern __shared__ __align__(16) uint8_t dec_smem[];
+  __shared__ int last;
+  const uint32_t ring = sm90::smem_u32(dec_smem);
+  const uint32_t zero_row = ring + STAGES * STAGE;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int n0 = blockIdx.x * BN, S = gridDim.y;
+  const int per = ((K + BK - 1) / BK + S - 1) / S * BK;  // a slice's k
+  const int k_begin = blockIdx.y * per, k_end = min(K, k_begin + per);
+  const int steps = k_end > k_begin ? (k_end - k_begin + BK - 1) / BK : 0;
+  const int ldb = BT ? K : N;
+  const bool a_vec =
+      ((reinterpret_cast<uintptr_t>(A) | (uintptr_t)K * 2) & 15) == 0;
+  const bool b_vec =
+      ((reinterpret_cast<uintptr_t>(B) | (uintptr_t)ldb * 2) & 15) == 0;
+  uint64_t policy;  // B is read once: its lines leave the L2 first
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n"
+               : "=l"(policy));
+  if (tid < 4) reinterpret_cast<uint32_t*>(dec_smem + STAGES * STAGE)[tid] = 0;
+
+  auto load = [&](int i) {  // step i of the slice into slot i % STAGES
+    bf16* As = reinterpret_cast<bf16*>(dec_smem + (i % STAGES) * STAGE);
+    bf16* Bs = As + A_BYTES / 2;
+    const int k0 = k_begin + i * BK;
+    for (int v = tid; v < M * (BK / 8); v += THREADS) {  // A's rows below M
+      const int r = v / (BK / 8), c = (v % (BK / 8)) * 8;
+      stage8(As + r * A_LD + c, A + (size_t)r * K + k0 + c, k_end - k0 - c,
+             a_vec, A);
+    }
+#pragma unroll
+    for (int j = 0; j < BN * BK / 8 / THREADS; ++j) {
+      const int v = tid + j * THREADS;
+      if constexpr (BT) {
+        const int r = v / (BK / 8), c = (v % (BK / 8)) * 8, gn = n0 + r;
+        stage8<true>(Bs + r * B_LD + c, B + (size_t)gn * K + k0 + c,
+                            gn < N ? k_end - k0 - c : 0, b_vec, B, policy);
+      } else {
+        const int r = v / (BN / 8), c = (v % (BN / 8)) * 8, gk = k0 + r;
+        stage8<true>(Bs + r * B_LD + c, B + (size_t)gk * N + n0 + c,
+                            gk < k_end ? N - n0 - c : 0, b_vec, B, policy);
+      }
+    }
+  };
+
+  // ldmatrix addresses: lane l gives row l % 8 of matrix q = l / 8
+  const int q = lane >> 3, r8 = lane & 7;
+  const int a_row = r8 + (q & 1) * 8;  // A: (rows 0-7 | 8-15) x (k | k+8)
+  float acc[NG][4] = {};
+  auto mma_step = [&](int slot) {
+    const uint32_t as = ring + slot * STAGE, bs = as + A_BYTES;
+#pragma unroll
+    for (int ks = 0; ks < BK / (16 * WARPS); ++ks) {
+      const int kk = 16 * (ks * WARPS + warp);
+      uint32_t a[4], b[NG][2];
+      ldmatrix_x4(a, a_row < M ? as + (a_row * A_LD + kk + (q >> 1) * 8) * 2
+                               : zero_row);
+#pragma unroll
+      for (int h = 0; h < NG / 2; ++h) {  // columns 16h..16h+15
+        uint32_t x[4];
+        if constexpr (BT)
+          ldmatrix_x4(x, bs + ((16 * h + (q >> 1) * 8 + r8) * B_LD + kk +
+                               (q & 1) * 8) * 2);
+        else
+          ldmatrix_x4_trans(x, bs + ((kk + (q & 1) * 8 + r8) * B_LD +
+                                     16 * h + (q >> 1) * 8) * 2);
+        b[2 * h][0] = x[0];
+        b[2 * h][1] = x[1];
+        b[2 * h + 1][0] = x[2];
+        b[2 * h + 1][1] = x[3];
+      }
+#pragma unroll
+      for (int j = 0; j < NG; ++j) mma_bf16_16816(acc[j], a, b[j]);
+    }
+  };
+
+#pragma unroll
+  for (int i = 0; i < STAGES - 1; ++i) {
+    if (i < steps) load(i);
+    cp_async_commit();
+  }
+  for (int i = 0; i < steps; ++i) {
+    cp_async_wait<STAGES - 2>();  // step i has landed
+    __syncthreads();              // ...for every thread; slot i - 1 is free
+    if (i + STAGES - 1 < steps) load(i + STAGES - 1);
+    cp_async_commit();
+    mma_step(i % STAGES);
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // the block's tile: the warps' partial tiles summed in warp order
+  float* red = reinterpret_cast<float*>(dec_smem);
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < NG; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      red[(warp * 16 + g + 8 * (e >> 1)) * RED_LD + 8 * j + 2 * t + (e & 1)] =
+          acc[j][e];
+  __syncthreads();
+  // a thread's outputs: rows tid / BN + o * (THREADS / BN), column col
+  constexpr int OUT = 16 * BN / THREADS;
+  const int col = tid % BN, n = n0 + col;
+  float sum[OUT];
+#pragma unroll
+  for (int o = 0; o < OUT; ++o) {
+    const int m = (tid + o * THREADS) / BN;
+    sum[o] = red[m * RED_LD + col];
+#pragma unroll
+    for (int w = 1; w < WARPS; ++w) sum[o] += red[(16 * w + m) * RED_LD + col];
+  }
+  if (S == 1) {
+#pragma unroll
+    for (int o = 0; o < OUT; ++o) {
+      const int m = (tid + o * THREADS) / BN;
+      if (m < M && n < N) C[(size_t)m * N + n] = __float2bfloat16_rn(sum[o]);
+    }
+    return;
+  }
+#pragma unroll
+  for (int o = 0; o < OUT; ++o) {
+    const int m = (tid + o * THREADS) / BN;
+    if (m < M && n < N) ws[((size_t)blockIdx.y * M + m) * N + n] = sum[o];
+  }
+  // Arrive: the block's partial (ordered before thread 0's fence by the
+  // barrier) is visible device-wide before its count is.
+  __syncthreads();
+  if (tid == 0) {
+    __threadfence();
+    last = atomicAdd(&arrivals[blockIdx.x], 1) == S - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+#pragma unroll
+  for (int o = 0; o < OUT; ++o) {
+    const int m = (tid + o * THREADS) / BN;
+    if (m >= M || n >= N) continue;
+    const float* p = ws + (size_t)m * N + n;
+    const size_t step = (size_t)M * N;
+    float s = 0.f;
+    for (int p0 = 0; p0 < S; p0 += RED_BATCH) {  // in slice order
+      float v[RED_BATCH];
+#pragma unroll
+      for (int u = 0; u < RED_BATCH; ++u)
+        v[u] = p0 + u < S ? __ldcg(p + (p0 + u) * step) : 0.f;
+#pragma unroll
+      for (int u = 0; u < RED_BATCH; ++u) s += v[u];
+    }
+    C[(size_t)m * N + n] = __float2bfloat16_rn(s);
+  }
+  if (tid == 0) arrivals[blockIdx.x] = 0;  // ready for the next launch
 }
 
 // fp32: 64x64 tiles, 256 threads of 4x4 outputs each, fmaf on the CUDA
@@ -413,12 +653,43 @@ cudaError_t launch_bf16(const void* a, const void* b, void* c, int M, int N,
   return cudaGetLastError();
 }
 
+template <int BN, bool BT>
+int launch_decode_tile(const void* a, const void* b, void* c, int M, int N,
+                       int K, int split, float* ws, int* arrivals,
+                       cudaStream_t s) {
+  constexpr int smem = dec::smem_bytes(BN, BT);
+  static bool sized = false;  // once per instance
+  if (!sized) {
+    cudaError_t e = cudaFuncSetAttribute(
+        matmul_decode<BN, BT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (e == cudaSuccess)  // room for several blocks an SM
+      e = cudaFuncSetAttribute(matmul_decode<BN, BT>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+    if (e != cudaSuccess) return e;
+    sized = true;
+  }
+  const dim3 grid((N + BN - 1) / BN, split);
+  matmul_decode<BN, BT><<<grid, dec::THREADS, smem, s>>>(
+      static_cast<const bf16*>(a), static_cast<const bf16*>(b),
+      static_cast<bf16*>(c), ws, arrivals, M, N, K);
+  return cudaGetLastError();
+}
+
 template <bool BT>
-cudaError_t launch_mma_sync(int route, const void* a, const void* b, void* c,
-                            int M, int N, int K, cudaStream_t s) {
-  if (route == 1)  // decode: one 16-row tile, deep K steps
-    return launch_bf16<16, 32, 128, 1, 4, BT>(a, b, c, M, N, K, s);
-  return launch_bf16<128, 128, 32, 2, 4, BT>(a, b, c, M, N, K, s);
+int launch_decode(const void* a, const void* b, void* c, int M, int N, int K,
+                  int tile_n, int split, float* ws, int* arrivals,
+                  cudaStream_t s) {
+  if (M > 16 || split < 1 || split > 65535 || (split > 1 && !(ws && arrivals)))
+    return cudaErrorInvalidValue;
+  switch (tile_n) {
+    case 32:
+      return launch_decode_tile<32, BT>(a, b, c, M, N, K, split, ws, arrivals, s);
+    case 64:
+      return launch_decode_tile<64, BT>(a, b, c, M, N, K, split, ws, arrivals, s);
+  }
+  return cudaErrorInvalidValue;
 }
 
 template <bool BT>
@@ -434,23 +705,30 @@ cudaError_t launch_f32(const void* a, const void* b, void* c, int M, int N,
 }  // namespace
 
 // Launches the route the caller chose (kernels/matmul.py ROUTES: 0 f32,
-// 1 decode, 2 mma_sync, 3 wgmma with tiles `tile_n` columns wide) and
-// returns the cudaError_t of the launch (0 on success), or -(CUresult)
-// when a TMA tensor map cannot be made. The caller has checked shapes,
-// dtypes, contiguity, M, N > 0 and that the route takes the operands.
+// 1 decode in `split` K-slices, 2 mma_sync, 3 wgmma with tiles `tile_n`
+// columns wide) and returns the cudaError_t of the launch (0 on success),
+// or -(CUresult) when a TMA tensor map cannot be made. The caller has
+// checked shapes, dtypes, contiguity, M, N > 0 and that the route takes
+// the operands; a split decode needs `ws` (split x M x N fp32) and
+// `arrivals` (one zeroed int per 32 columns, left zeroed).
 extern "C" int repro_matmul(const void* a, const void* b, void* c, int M,
                             int N, int K, int b_transposed, int route,
-                            int tile_n, void* stream) {
+                            int tile_n, int split, float* ws, int* arrivals,
+                            void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (route) {
     case 0:
       return b_transposed ? launch_f32<true>(a, b, c, M, N, K, s)
                           : launch_f32<false>(a, b, c, M, N, K, s);
     case 1:
+      return b_transposed ? launch_decode<true>(a, b, c, M, N, K, tile_n,
+                                                split, ws, arrivals, s)
+                          : launch_decode<false>(a, b, c, M, N, K, tile_n,
+                                                 split, ws, arrivals, s);
     case 2:
       return b_transposed
-                 ? launch_mma_sync<true>(route, a, b, c, M, N, K, s)
-                 : launch_mma_sync<false>(route, a, b, c, M, N, K, s);
+                 ? launch_bf16<128, 128, 32, 2, 4, true>(a, b, c, M, N, K, s)
+                 : launch_bf16<128, 128, 32, 2, 4, false>(a, b, c, M, N, K, s);
     case 3:
       if (b_transposed) return cudaErrorInvalidValue;
       return launch_wgmma(a, b, c, M, N, K, tile_n, s);

@@ -24,6 +24,51 @@ __device__ __forceinline__ void mma_bf16_16816(float c[4], const uint32_t a[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+// Four 8x8 bf16 matrices from shared memory: lane l gives the address of
+// row l % 8 of matrix l / 8 (16-byte aligned), and r[i] of lane 4g + t
+// receives row g, elements 2t and 2t+1 of matrix i; with .trans, column g,
+// rows 2t and 2t+1.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4],
+                                                  uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// Asynchronous copy of 16 bytes from global to shared memory (both 16-byte
+// aligned), of which the first `bytes` are read and the rest are zeros;
+// completion by commit and wait groups.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+// the same with an L2 cache policy (createpolicy) for the lines it reads
+__device__ __forceinline__ void cp_async16_hint(uint32_t dst, const void* src,
+                                                int bytes, uint64_t policy) {
+  asm volatile(
+      "cp.async.cg.shared.global.L2::cache_hint [%0], [%1], 16, %2, %3;\n" ::"r"(
+          dst),
+      "l"(src), "r"(bytes), "l"(policy)
+      : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 // two consecutive bf16 in shared memory (4-byte aligned)
 __device__ __forceinline__ uint32_t ld_pair(const bf16* p) {
   return *reinterpret_cast<const uint32_t*>(p);

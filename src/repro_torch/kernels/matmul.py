@@ -5,12 +5,16 @@ The kernel (``csrc/matmul.cu``) replaces ``_matmul_kernel`` /
 takes the plain version (``ref.matmul_ref``); a CUDA tensor launches the
 kernel or raises. ``route`` picks one of the kernel's four routes from the
 shape, the dtype and the pointers before the launch; ``launches`` counts
-kernel launches and ``route_launches`` counts them by route.
+kernel launches and ``route_launches`` counts them by route. The decode
+route (M <= 16) splits K into ``decode_split`` slices where C's column
+tiles alone would leave SMs idle, and reduces the slices in the same
+launch.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -22,6 +26,9 @@ ROUTES = ("f32", "decode", "mma_sync", "wgmma")
 WGMMA_MIN_M = 64      # one warpgroup's rows; below it the 128-row tile is mostly empty
 WGMMA_TILE_M = 128
 DECODE_MAX_M = 16     # the decode route's tile height
+DECODE_STEP_K = 64    # the decode kernel's K-step: every K-slice but the last is a multiple
+DECODE_WIDE = 2 ** 24  # weights of at least this many elements (32 MiB) take 64-wide tiles
+DECODE_WAVES = 2      # blocks an SM that splitting K aims for
 
 launches = 0
 route_launches = dict.fromkeys(ROUTES, 0)
@@ -34,7 +41,8 @@ def _kernel():
     global _fn
     if _fn is None:
         fn = build.load("matmul").repro_matmul
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 7
+                       + [ctypes.c_void_p] * 3)
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
@@ -66,14 +74,63 @@ def wgmma_tile_n(M: int, N: int, sms: int) -> int:
     return 256 if 2 * waves(256) <= waves(128) else 128
 
 
+def decode_tile_n(N: int, K: int) -> int:
+    """Columns of a decode-route tile: 64 for weights of DECODE_WIDE
+    elements or more, which stream long enough that a tile's 128-byte rows
+    (a whole L2 line) beat the latency that more, narrower tiles hide;
+    else 32."""
+    return 64 if K * N >= DECODE_WIDE else 32
+
+
+@functools.lru_cache(maxsize=None)
+def decode_split(N: int, K: int, sms: int) -> int:
+    """The K-slices of the decode kernel. 1 where C's column tiles already
+    give every SM a block (the LM heads), else about DECODE_WAVES blocks
+    an SM, or one slice per K-step where K is too short for that; at least
+    one block an SM whenever K allows. The kernel makes each slice
+    ceil(steps / slices) K-steps long, the last shorter; the count
+    returned leaves no slice empty. M does not enter: every tile is 16
+    rows high."""
+    tiles = math.ceil(N / decode_tile_n(N, K))
+    steps = math.ceil(K / DECODE_STEP_K)
+    if tiles >= sms or steps <= 1:
+        return 1
+    want = math.ceil(DECODE_WAVES * sms / tiles)
+    return math.ceil(steps / math.ceil(steps / want))
+
+
 _sms: dict[int, int] = {}
+_scratch: dict[int, tuple] = {}  # device: (addresses, the tensors they belong to)
+
+
+def _index(device: torch.device) -> int:
+    return device.index if device.index is not None else torch.cuda.current_device()
 
 
 def sm_count(device: torch.device) -> int:
-    idx = device.index if device.index is not None else torch.cuda.current_device()
+    idx = _index(device)
     if idx not in _sms:
         _sms[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
     return _sms[idx]
+
+
+def _split_scratch(device: torch.device) -> tuple[int, int]:
+    """Addresses of the split decode's fp32 workspace and its per-tile
+    arrival counters on ``device``, made once and zeroed once: each launch
+    leaves its counters at zero again, so calls on one device must be
+    serialised on one stream, as the port's are. A split grid has fewer
+    tiles than SMs and at most DECODE_WAVES blocks an SM more than one
+    tile's worth, so split x N < (DECODE_WAVES + 1) x sms x 64, and M <=
+    DECODE_MAX_M: the sizes below hold every split call, and no captured
+    CUDA graph outlives a buffer it points at."""
+    idx = _index(device)
+    if idx not in _scratch:
+        sms = sm_count(device)
+        ws = torch.empty(DECODE_MAX_M * (DECODE_WAVES + 1) * sms * 64,
+                         dtype=torch.float32, device=device)
+        counts = torch.zeros(sms, dtype=torch.int32, device=device)
+        _scratch[idx] = ((ws.data_ptr(), counts.data_ptr()), (ws, counts))
+    return _scratch[idx][0]
 
 
 def launch(a: torch.Tensor, b: torch.Tensor, out: torch.Tensor, which: str,
@@ -85,14 +142,22 @@ def launch(a: torch.Tensor, b: torch.Tensor, out: torch.Tensor, which: str,
     N = out.shape[1]
     ptrs = (a.data_ptr(), b.data_ptr(), out.data_ptr())
     if (which == "f32") != (a.dtype == torch.float32) or (
+            which == "decode" and M > DECODE_MAX_M) or (
             which == "wgmma"
             and route(M, N, K, b_transposed, a.dtype, ptrs) != "wgmma"):
         raise ValueError(f"matmul: route {which} does not take {a.dtype} "
                          f"({M}, {K}) x ({K}, {N}), b_transposed={b_transposed}")
-    tile_n = wgmma_tile_n(M, N, sm_count(a.device)) if which == "wgmma" else 0
+    tile_n, split, scratch = 0, 1, (None, None)
+    if which == "wgmma":
+        tile_n = wgmma_tile_n(M, N, sm_count(a.device))
+    elif which == "decode":
+        tile_n = decode_tile_n(N, K)
+        split = decode_split(N, K, sm_count(a.device))
+        if split > 1:
+            scratch = _split_scratch(a.device)
     stream = torch.cuda.current_stream(a.device).cuda_stream
     err = _kernel()(*ptrs, M, N, K, int(b_transposed), ROUTES.index(which),
-                    tile_n, stream)
+                    tile_n, split, *scratch, stream)
     if err < 0:
         raise RuntimeError(f"matmul kernel ({which}): cuTensorMapEncodeTiled "
                            f"failed: CUresult {-err}")

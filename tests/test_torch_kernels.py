@@ -4,6 +4,7 @@ JAX package's Pallas kernels in interpret mode and its model attention,
 plus the dispatch and the no-fallback rules of the wrappers. The CUDA
 kernels themselves run only on the card (``python3 chip_smoke.py``)."""
 
+import math
 import os
 import subprocess
 import sys
@@ -196,8 +197,66 @@ def test_wgmma_tile_width_takes_the_fewer_waves(mn_tile):
     assert waves[want] * want <= waves[other] * other
 
 
+# the decode cases of both served configs, and edge shapes: ragged with B
+# as (N, K), M = 1 at x_proj's shape, M = 16 at mlp wo's
+_DECODE_CASES = [c for c in _SERVE_CASES if c[-1] == "decode"] + [
+    ("edge-4x1000x333-bt", 4, 1000, 333, True, "decode"),
+    ("edge-1x8192x288", 1, 8192, 288, False, "decode"),
+    ("edge-16x6912x1152", 16, 6912, 1152, False, "decode")]
+
+
+@pytest.mark.parametrize("case", _DECODE_CASES,
+                         ids=[c[0] for c in _DECODE_CASES])
+def test_decode_split_fills_the_card_and_covers_k(case):
+    """On 132 SMs: at least one block an SM; K-slices, cut as the kernel
+    cuts them, that cover K once each, every one but the last a whole
+    number of K-steps; no split for the LM heads."""
+    name, _, K, N, _, _ = case
+    split = tmatmul.decode_split(N, K, 132)
+    assert math.ceil(N / tmatmul.decode_tile_n(N, K)) * split >= 132
+    step = tmatmul.DECODE_STEP_K
+    per = math.ceil(math.ceil(K / step) / split) * step
+    slices = [(i * per, min(K, (i + 1) * per)) for i in range(split)]
+    assert all(lo < hi for lo, hi in slices)
+    assert slices[0][0] == 0 and slices[-1][1] == K
+    assert all(a[1] == b[0] for a, b in zip(slices, slices[1:]))
+    assert all((hi - lo) % step == 0 for lo, hi in slices[:-1])
+    if name.endswith("lm_head"):
+        assert split == 1
+
+
+@pytest.mark.parametrize("sms", [132, 114, 78])
+def test_decode_split_fits_the_scratch(sms):
+    """Any shape: a split grid has fewer tiles than SMs and needs no more
+    workspace than the wrapper makes once per device (split x N <
+    (DECODE_WAVES + 1) x sms x 64 fp32 rows of M <= 16), and every slice
+    holds K-steps."""
+    for N in range(1, 20000, 37):
+        for K in (1, 63, 64, 65, 1000, 8190, 30000):
+            split = tmatmul.decode_split(N, K, sms)
+            steps = math.ceil(K / tmatmul.DECODE_STEP_K)
+            assert 1 <= split <= steps
+            assert (split - 1) * math.ceil(steps / split) < steps
+            if split > 1:
+                assert math.ceil(N / tmatmul.decode_tile_n(N, K)) < sms
+                assert split * N < (tmatmul.DECODE_WAVES + 1) * sms * 64
+
+
+@pytest.mark.parametrize("nk_tile", [
+    ((16384, 4096), 64), ((4096, 8192), 64), ((65024, 4096), 64),
+    ((262144, 1152), 64), ((288, 8192), 32), ((8192, 256), 32),
+    ((1152, 6912), 32), ((6912, 1152), 32), ((1024, 1152), 32),
+    ((333, 1000), 32)])
+def test_decode_tile_width(nk_tile):
+    """64 columns a tile for weights of 32 MiB and more (falcon-mamba-7b's
+    in_proj and out_proj, both LM heads), else 32."""
+    (N, K), want = nk_tile
+    assert tmatmul.decode_tile_n(N, K) == want
+
+
 @pytest.mark.parametrize("which, dtype, bt", [
     ("f32", torch.bfloat16, False), ("decode", torch.float32, False),
+    ("decode", torch.bfloat16, False),
     ("mma_sync", torch.float32, False), ("wgmma", torch.bfloat16, True),
     ("wgmma", torch.float32, False)])
 def test_matmul_launch_refuses_a_route_that_cannot_take_the_operands(
@@ -213,8 +272,8 @@ def test_matmul_launch_refuses_a_route_that_cannot_take_the_operands(
 
 
 def test_matmul_module_imports_without_a_cuda_toolkit():
-    """Importing the wrapper and choosing a route build nothing: no nvcc on
-    PATH and no CUDA_HOME."""
+    """Importing the wrapper and choosing a route, a decode tile and a
+    split build nothing: no nvcc on PATH and no CUDA_HOME."""
     env = {k: v for k, v in os.environ.items()
            if k not in ("CUDA_HOME", "CUDA_PATH")}
     env["PATH"] = os.path.dirname(sys.executable)
@@ -222,6 +281,9 @@ def test_matmul_module_imports_without_a_cuda_toolkit():
             "from repro_torch.kernels import build, matmul\n"
             "r = matmul.route(4096, 1024, 1152, False, torch.bfloat16, (0, 16, 32))\n"
             "assert r == 'wgmma' and not build._loaded and matmul._fn is None\n"
+            "assert matmul.decode_split(288, 8192, 132) > 1\n"
+            "assert matmul.decode_tile_n(288, 8192) == 32\n"
+            "assert not build._loaded and matmul._fn is None and not matmul._scratch\n"
             "assert matmul.launches == 0 and set(matmul.route_launches.values()) == {0}\n"
             "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], env=env, text=True,
