@@ -17,13 +17,21 @@
    times the mma_sync route at the same shape (``prev_ms``); each decode
    case prints its tile width and K-slices (``decode_split``).
 3. Holds the flash-attention kernel against its plain version: the Pallas
-   kernel's cases (KV=H, causal and not, S != T) and the model's prefill
-   shapes (GQA 4:1, D=256, window 512 and global).
+   kernel's cases (KV=H, causal and not, S != T, D = 64 and 128), the
+   model's prefill shapes (GQA 4:1, D=256, window 512 and global), and at
+   D = 256 ragged S and T (1000), S != T, window 1 and a window wider than
+   S, non-causal with and without a window, GQA 4:1 in the model's
+   layout; on the mma_sync route the reduced config's shape (D = 16) and
+   D = 32 with GQA and a window. Each case asserts its route
+   (``flash_attention.route_launches``: wgmma for D >= 64), that a second
+   call gives the same bits, and that its tolerance rejects a zeroed and a
+   10 %-off output.
 4. Serves full-width gemma3-1b (random weights from seed 0): batch 4,
    1024-token prompts, 32 greedy decode tokens, through
    ``repro_torch.launch.serve``; checks that both of its kernels were
    launched, that every prefill projection took the wgmma route and
-   every decode matmul the decode route, that the kernel path is no
+   every decode matmul the decode route, that all 26 prefill attention
+   calls took the flash kernel's wgmma route, that the kernel path is no
    farther from the model in fp32 than the plain path (``impl="torch"``),
    and the reduced model on the card against the CPU; times the prefill
    PREFILL_REPEATS times more. Then frees all of it.
@@ -79,7 +87,9 @@ BATCH, PROMPT, DECODE = 4, 1024, 32
 # the tensor; where it has atol too, the smaller of the two holds
 MM_TOL = {torch.bfloat16: dict(rtol=1e-2, atol=1e-2),   # one bf16 rounding of the output
           torch.float32: dict(rtol=1e-4, atol=1e-4)}
-FA_TOL = dict(rtol=2e-2, atol=2e-2)    # P rounded to bf16 against another running max
+# P rounded to bf16 against another running max; atol_rel keeps the limit
+# below 10 % of the output where attention averages many keys (|out| << 1)
+FA_TOL = dict(rtol=2e-2, atol=2e-2, atol_rel=2e-2)
 # the scan's y and state are small at the model's init (|y| ~ 1e-2), so
 # their limits follow the tensor: rtol 8e-3 is one bf16 rounding of y
 SCAN_TOL = {torch.float32: dict(rtol=2e-3, atol=2e-3, atol_rel=1e-3),  # test_kernels.py's
@@ -536,7 +546,12 @@ def matmul_edge_cases():
 
 # --------------------------------------------------------- flash attention
 
-def flash_case(B, H, KV, S, T, D, causal, window, tag, model_layout=False):
+def flash_case(B, H, KV, S, T, D, causal, window, tag, want_route,
+               model_layout=False):
+    """One flash-attention case: the route it takes (asserted), the kernel
+    against its plain version, a second call's bits against the first's,
+    the tolerance's power to reject a wrong output; the kernel, the plain
+    version and SDPA timed."""
     from repro_torch.kernels import flash_attention as kfa
     from repro_torch.kernels import ref
 
@@ -553,10 +568,22 @@ def flash_case(B, H, KV, S, T, D, causal, window, tag, model_layout=False):
         q, k, v = (torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
                    for shape in ((B, H, S, D), (B, KV, T, D), (B, KV, T, D)))
         scale = D ** -0.5
+    before = dict(kfa.route_launches)
     got = kfa.flash_attention(q, k, v, causal, window, scale)
+    again = kfa.flash_attention(q, k, v, causal, window, scale)
+    taken = {r: n - before[r] for r, n in kfa.route_launches.items()
+             if n != before[r]}
     want = ref.flash_attention_ref(q, k, v, causal, window, scale)
     torch.cuda.synchronize()
-    err = check_close(f"flash {tag}", got, want, FA_TOL)
+    name = (f"flash {tag} (B={B} H={H} KV={KV} S={S} T={T} D={D} "
+            f"causal={int(causal)} window={window})")
+    if taken != {want_route: 2}:
+        raise AssertionError(f"{name} took routes {taken}, expected {want_route}")
+    err = check_close(name, got, want, FA_TOL)
+    check_discerns(name, want, FA_TOL)
+    if not torch.equal(got, again):
+        raise AssertionError(f"{name}: two calls on the same inputs differ")
+    del got, again, want
     ms = time_ms(lambda: kfa.flash_attention(q, k, v, causal, window, scale), [()])
     plain = time_ms(lambda: ref.flash_attention_ref(q, k, v, causal, window, scale), [()])
     mask = ref.attention_mask(S, T, causal, window, "cuda")
@@ -574,12 +601,14 @@ def flash_case(B, H, KV, S, T, D, causal, window, tag, model_layout=False):
     nbytes = 2 * (2 * B * H * S * D + 2 * B * KV * T * D)
     bnd, by = bound_ms(nbytes, flops, torch.bfloat16)
     row = dict(tag=tag, B=B, H=H, KV=KV, S=S, T=T, D=D, causal=causal,
-               window=window, max_abs_err=err, ms=ms, plain_ms=plain,
-               library_ms=lib, bound_ms=bnd, bound_by=by)
+               window=window, route=want_route, max_abs_err=err, ms=ms,
+               plain_ms=plain, library_ms=lib, bound_ms=bnd, bound_by=by,
+               tflops=flops / ms / 1e9)
     print(f"flash {tag:>10} B={B} H={H} KV={KV} S={S} T={T} D={D} "
-          f"causal={int(causal)} window={window} err={err:.2e} kernel "
-          f"{ms:.4f} ms  plain {plain:.4f}  sdpa {lib:.4f}  bound {bnd:.4f} "
-          f"({by})", flush=True)
+          f"causal={int(causal)} window={window} route={want_route} "
+          f"err={err:.2e} kernel {ms:.4f} ms ({row['tflops']:.0f} TFLOP/s)  "
+          f"plain {plain:.4f}  sdpa {lib:.4f}  bound {bnd:.4f} ({by})",
+          flush=True)
     return row
 
 
@@ -592,14 +621,30 @@ def flash_phase(cfg):
                                   (1, 2, 384, 256, 64, True),
                                   (1, 2, 384, 256, 64, False),
                                   (1, 2, 256, 384, 64, True)):
-        rows.append(flash_case(B, H, H, S, T, D, causal, 0, "pallas"))
-    # the reduced config's shape: D=16, GQA, a window, ragged S
-    rows.append(flash_case(2, 4, 1, 37, 37, 16, True, 8, "reduced"))
+        rows.append(flash_case(B, H, H, S, T, D, causal, 0, "pallas", "wgmma"))
+    # the wgmma route's edges at the model's D: ragged S and T, S != T,
+    # the narrowest and a too-wide window, no causal rule, GQA in layout
+    for B, H, KV, S, T, causal, window, tag, layout in (
+            (1, 2, 2, 1000, 1000, True, 0, "ragged", False),
+            (1, 2, 2, 700, 1000, True, 0, "S<T", False),
+            (1, 2, 2, 1000, 700, True, 300, "S>T", False),
+            (1, 2, 1, 1000, 1000, True, 1, "window 1", False),
+            (1, 2, 2, 1000, 1000, True, 4096, "window>S", False),
+            (1, 2, 2, 1000, 1000, False, 0, "noncausal", False),
+            (1, 2, 2, 1000, 1100, False, 300, "nc window", False),
+            (2, 8, 2, 1000, 1000, True, 512, "gqa 4:1", True)):
+        rows.append(flash_case(B, H, KV, S, T, 256, causal, window, tag,
+                               "wgmma", model_layout=layout))
+    # the mma_sync route: the reduced config's shape (D=16, GQA, a window,
+    # ragged S) and D=32 with GQA and a window
+    rows.append(flash_case(2, 4, 1, 37, 37, 16, True, 8, "reduced", "mma_sync"))
+    rows.append(flash_case(2, 4, 1, 200, 200, 32, True, 50, "D=32", "mma_sync"))
     hd = cfg.resolved_head_dim
     local = flash_case(BATCH, cfg.n_heads, cfg.n_kv_heads, PROMPT, PROMPT, hd,
-                       True, cfg.sliding_window, "local", model_layout=True)
+                       True, cfg.sliding_window, "local", "wgmma",
+                       model_layout=True)
     glob = flash_case(BATCH, cfg.n_heads, cfg.n_kv_heads, PROMPT, PROMPT, hd,
-                      True, 0, "global", model_layout=True)
+                      True, 0, "global", "wgmma", model_layout=True)
     rows += [local, glob]
     n_global = sum(1 for m, _ in cfg.layer_kinds() if m == "attn")
     prefill = [(local, cfg.n_layers - n_global), (glob, n_global)]
@@ -715,14 +760,17 @@ def serve_phase(cfg):
         kmm = mods["matmul"]
         for m in mods.values():
             m.launches = 0
-        kmm.route_launches.update(dict.fromkeys(kmm.ROUTES, 0))
+            if hasattr(m, "route_launches"):
+                m.route_launches.update(dict.fromkeys(m.ROUTES, 0))
         tok, logits, cache, pre_ms = serve.run_prefill(cfg, params, toks)
         pre_counts = {k: m.launches for k, m in mods.items()}
         pre_routes = dict(kmm.route_launches)
+        fa_routes = (dict(mods["flash_attention"].route_launches)
+                     if "flash_attention" in mods else None)
         decoded, cache, dec_ms = serve.run_decode(cfg, params, tok, cache, DECODE)
         counts = {k: m.launches for k, m in mods.items()}
         routes = {r: n - pre_routes[r] for r, n in kmm.route_launches.items()}
-        check_routes(cfg, pre_routes, routes)
+        check_routes(cfg, pre_routes, routes, fa_routes)
         # the first full-size prefill grows the allocator's pool; repeats
         # show the steady state, and how far the host's dispatch spreads
         pre_ms_again = [serve.run_prefill(cfg, params, toks)[3]
@@ -744,7 +792,9 @@ def serve_phase(cfg):
               + ", ".join(f"{k} {counts[k]} (prefill {pre_counts[k]})"
                           for k in counts), flush=True)
         print(f"serve {cfg.name}: matmul routes, prefill {pre_routes}; "
-              f"decode {routes}", flush=True)
+              f"decode {routes}"
+              + ("" if fa_routes is None else
+                 f"; flash_attention routes, prefill {fa_routes}"), flush=True)
         print(f"serve {cfg.name}: first request continuation:",
               seq[0].tolist(), flush=True)
 
@@ -771,6 +821,7 @@ def serve_phase(cfg):
     return dict(arch=cfg.name, weight_bytes=weight_bytes, prefill_ms=pre_ms,
                 prefill_ms_repeated=pre_ms_again,
                 matmul_routes_prefill=pre_routes, matmul_routes_decode=routes,
+                flash_routes_prefill=fa_routes,
                 decode_ms=dec_ms, tok_s=tok_s,
                 decode_ms_per_token=dec_ms / DECODE,
                 decode_weight_bound_ms_per_token=weight_bytes / HBM_BYTES_S * 1e3,
@@ -781,10 +832,11 @@ def serve_phase(cfg):
                 continuation=seq[0].tolist())
 
 
-def check_routes(cfg, prefill: dict, decode: dict) -> None:
+def check_routes(cfg, prefill: dict, decode: dict, flash: dict | None) -> None:
     """Every prefill projection took the wgmma route and the LM head (the
     last position only, M = BATCH) the decode route; every decode matmul
-    took the decode route."""
+    took the decode route; every prefill attention call (one a layer) took
+    the flash kernel's wgmma route."""
     proj = sum(per for *_, per in projections(cfg)) * cfg.n_layers
     want_pre = dict.fromkeys(prefill, 0) | {"wgmma": proj, "decode": 1}
     want_dec = dict.fromkeys(decode, 0) | {"decode": (proj + 1) * DECODE}
@@ -792,6 +844,11 @@ def check_routes(cfg, prefill: dict, decode: dict) -> None:
         raise AssertionError(f"{cfg.name}: matmul routes prefill {prefill}, "
                              f"decode {decode}; expected {want_pre} and "
                              f"{want_dec}")
+    if flash is not None:
+        want_fa = dict.fromkeys(flash, 0) | {"wgmma": cfg.n_layers}
+        if flash != want_fa:
+            raise AssertionError(f"{cfg.name}: flash_attention routes prefill "
+                                 f"{flash}; expected {want_fa}")
 
 
 def rel_l2(a, b) -> float:
@@ -908,7 +965,7 @@ def profile_device(fn):
     if not kern:
         raise AssertionError("the profiler saw no device activity")
     busy = sum(e.self_device_time_total for e in kern) / 1e3
-    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:6]
+    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:8]
     return busy, wall, [(e.key[:70], e.self_device_time_total / 1e3, e.count)
                         for e in top]
 

@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks in inline PTX: mbarriers, TMA tile
-// loads, and warpgroup MMA (wgmma) with shared-memory descriptors.
+// loads and stores, warpgroup MMA (wgmma) with shared-memory descriptors
+// and with A from registers, and setmaxnreg.
 //
 // The wgmma descriptor (PTX ISA "matrix descriptor"; CUTLASS
 // cute/arch/mma_sm90_desc.hpp) packs, in 16-byte units:
@@ -77,6 +78,44 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
       "bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
       : "memory");
+}
+
+// TMA over a 4-D map: the box at (c0 innermost, c1, c2, c3)
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// TMA store of a box from shared memory; elements past the map's edge are
+// not written. Order the block's own writes of `src` before it with
+// fence_proxy_async and a barrier; tma_store_commit and tma_store_wait<0>
+// after it, before the shared memory is reused or the block exits.
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1,
+                                             int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group "
+      "[%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+__device__ __forceinline__ void tma_store_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// until at most N committed stores still read shared memory
+template <int N>
+__device__ __forceinline__ void tma_store_wait() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+// make this thread's generic-proxy writes to shared memory visible to TMA
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 __device__ __forceinline__ uint64_t desc_sw128(uint32_t saddr, uint32_t lbo,
@@ -194,6 +233,122 @@ __device__ __forceinline__ void wgmma_m64k16(float (&d)[N / 2], uint64_t da,
   else
     wgmma_m64n256k16<TRANS_B>(d, da, db);
 }
+
+// "+f" operands d[i] .. d[i + 7] of the wgmma forms below
+#define SM90_F8(i)                                                        \
+  "+f"(d[(i)]), "+f"(d[(i) + 1]), "+f"(d[(i) + 2]), "+f"(d[(i) + 3]),     \
+      "+f"(d[(i) + 4]), "+f"(d[(i) + 5]), "+f"(d[(i) + 6]), "+f"(d[(i) + 7])
+
+// D(64x64, fp32) = A(64x16) * B(16x64) (+ D if `accumulate`), both from
+// shared memory, A K-major; TRANS_B = 0 when B is K-major too (an (N, K)
+// row-major tile, as K is in attention's Q.K^T). The layout of d is that
+// of wgmma_m64n128k16.
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t da,
+                                                uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, %35;\n"
+      "}\n"
+      : SM90_F8(0), SM90_F8(8), SM90_F8(16), SM90_F8(24)
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TRANS_B));
+}
+
+// D(64xN, fp32) += A(64x16, bf16) * B(16xN, bf16), A from registers, B from
+// shared memory (TRANS_B = 1 when B is N-major). Register layout of A: for
+// thread t of the warpgroup, w = t / 32, g = (t % 32) / 4, c = t % 4,
+//   a[0] = A[16w + g][2c, 2c+1],      a[1] = A[16w + g + 8][2c, 2c+1],
+//   a[2] = A[16w + g][2c+8, 2c+9],    a[3] = A[16w + g + 8][2c+8, 2c+9],
+// two bf16 a register, the lower column in the low half: mma.sync
+// m16n8k16's A fragment, one warp for each 16 rows. That is the layout of
+// d[8j] .. d[8j + 7] of a 64-row fp32 accumulator (columns 16j .. 16j+15)
+// packed in pairs, a[i] = (d[8j + 2i], d[8j + 2i + 1]): the product of one
+// wgmma turns into the A operand of the next without leaving registers.
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32],
+                                                   const uint32_t (&a)[4],
+                                                   uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n"
+      "}\n"
+      : SM90_F8(0), SM90_F8(8), SM90_F8(16), SM90_F8(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1),
+        "n"(TRANS_B));
+}
+
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64],
+                                                   const uint32_t (&a)[4],
+                                                   uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, %70;\n"
+      "}\n"
+      : SM90_F8(0), SM90_F8(8), SM90_F8(16), SM90_F8(24), SM90_F8(32),
+        SM90_F8(40), SM90_F8(48), SM90_F8(56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1),
+        "n"(TRANS_B));
+}
+
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n256k16_rs(float (&d)[128],
+                                                   const uint32_t (&a)[4],
+                                                   uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, "
+      "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, "
+      "%93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, "
+      "%105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, "
+      "%116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, "
+      "%127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, %134;\n"
+      "}\n"
+      : SM90_F8(0), SM90_F8(8), SM90_F8(16), SM90_F8(24), SM90_F8(32),
+        SM90_F8(40), SM90_F8(48), SM90_F8(56), SM90_F8(64), SM90_F8(72),
+        SM90_F8(80), SM90_F8(88), SM90_F8(96), SM90_F8(104), SM90_F8(112),
+        SM90_F8(120)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1),
+        "n"(TRANS_B));
+}
+
+template <int N, int TRANS_B>
+__device__ __forceinline__ void wgmma_m64k16_rs(float (&d)[N / 2],
+                                                const uint32_t (&a)[4],
+                                                uint64_t db) {
+  if constexpr (N == 64)
+    wgmma_m64n64k16_rs<TRANS_B>(d, a, db);
+  else if constexpr (N == 128)
+    wgmma_m64n128k16_rs<TRANS_B>(d, a, db);
+  else
+    wgmma_m64n256k16_rs<TRANS_B>(d, a, db);
+}
+#undef SM90_F8
 
 // named barrier `id` (1..15) over `count` threads of the block
 __device__ __forceinline__ void bar_sync(int id, int count) {

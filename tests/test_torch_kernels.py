@@ -24,7 +24,7 @@ from repro.kernels.mamba_scan import mamba_scan_pallas  # noqa: E402
 from repro.kernels.matmul import matmul_pallas  # noqa: E402
 from repro.kernels.stream_triad import triad_pallas  # noqa: E402
 from repro.models.attention import _attend  # noqa: E402
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import get_config, get_reduced  # noqa: E402
 from repro_torch.kernels import flash_attention as tflash  # noqa: E402
 from repro_torch.kernels import jacobi2d as tjacobi  # noqa: E402
 from repro_torch.kernels import mamba_scan as tscan  # noqa: E402
@@ -353,6 +353,138 @@ def test_flash_plain_gqa_window_matches_model_attend(hkv, window):
                               scale=1.0)
     got = got.transpose(1, 2).reshape(B, S, H * D)
     np.testing.assert_allclose(_np(got), _np(want), rtol=2e-2, atol=2e-2)
+
+
+def _meta_operands(B, H, KV, S, T, D, model_layout=False):
+    """q, k, v as metadata only (no storage): (B,H,S,D) and (B,KV,T,D), or
+    in the model's layout, (B,S,H,D) and (B,T,KV,D) tensors transposed."""
+    def make(b, h, n):
+        if model_layout:
+            return torch.empty((b, n, h, D), dtype=torch.bfloat16,
+                               device="meta").transpose(1, 2)
+        return torch.empty((b, h, n, D), dtype=torch.bfloat16, device="meta")
+    return make(B, H, S), make(B, KV, T), make(B, KV, T)
+
+
+def _flash_route_cases():
+    """(id, (B, H, KV, S, T, D), window, model layout, route): gemma3-1b's
+    prefill calls at full width (4 x 1024 tokens, local and global), the
+    shapes chip_smoke.py's flash phase gives each route, the reduced
+    config's."""
+    full, red = get_config("gemma3-1b"), get_reduced("gemma3-1b")
+    hd = full.resolved_head_dim
+    cases = [(f"gemma3-1b-{kind}", (4, full.n_heads, full.n_kv_heads, 1024,
+                                    1024, hd), window, True, "wgmma")
+             for kind, window in (("local", full.sliding_window),
+                                  ("global", 0))]
+    cases += [(f"pallas-{s}x{t}-d{d}", (b, h, h, s, t, d), 0, False, "wgmma")
+              for b, h, s, t, d in ((1, 2, 256, 256, 64), (2, 4, 512, 512, 128),
+                                    (1, 2, 384, 256, 64), (1, 2, 256, 384, 64))]
+    cases += [("ragged-d256", (1, 2, 2, 1000, 1100, 256), 300, False, "wgmma"),
+              ("gqa-4to1-d256", (2, 8, 2, 1000, 1000, 256), 512, True, "wgmma"),
+              ("reduced", (2, red.n_heads, red.n_kv_heads, 37, 37,
+                           red.resolved_head_dim), red.sliding_window, False,
+               "mma_sync"),
+              ("d32", (2, 4, 1, 200, 200, 32), 50, True, "mma_sync")]
+    return cases
+
+
+_FLASH_ROUTE_CASES = _flash_route_cases()
+
+
+@pytest.mark.parametrize("case", _FLASH_ROUTE_CASES,
+                         ids=[c[0] for c in _FLASH_ROUTE_CASES])
+def test_flash_route_of_every_checked_shape(case):
+    """The operands pass the wrapper's checks as given (model layout
+    included), and the route follows D alone: wgmma from D = 64, where a
+    row fills the 128-byte swizzle, mma_sync below. Choosing builds
+    nothing."""
+    _, shape, window, layout, want = case
+    q, k, v = _meta_operands(*shape, model_layout=layout)
+    assert tflash.check_operands(q, k, v, window) == shape
+    assert tflash.route(shape[-1], q.dtype) == want
+    assert tflash._fn is None
+
+
+@pytest.mark.parametrize("D", tflash.WGMMA_HEAD_DIMS)
+def test_flash_wgmma_smem_plan_fits_an_sm(D):
+    """Q (128 rows), a ring of at least 2 stages of 64-key K and V tiles,
+    the alignment slack and the mbarriers fit the 227 KB a block may use,
+    and every tile is whole 1024-byte swizzle atoms."""
+    stages = tflash.wgmma_stages(D)
+    assert stages >= 2
+    assert tflash.wgmma_smem_bytes(D) <= tflash.SMEM_LIMIT == 227 * 1024
+    assert (tflash.WGMMA_BQ * D * 2) % 1024 == 0
+    assert (tflash.WGMMA_BKV * D * 2) % 1024 == 0
+    if D == 256:  # 64 KB of Q, 2 x (32 KB of K + 32 KB of V)
+        assert tflash.wgmma_smem_bytes(D) == 65536 + 2 * 65536 + 1024 + 8 * 9
+
+
+def _misaligned(shape):
+    flat = torch.zeros(math.prod(shape) + 8, dtype=torch.bfloat16)
+    return flat[1:1 + math.prod(shape)].view(shape)
+
+
+@pytest.mark.parametrize("case", [
+    ("fp32", lambda: [torch.zeros((1, 2, 8, 16))] * 3, 0, "takes bf16"),
+    ("q-3d", lambda: [torch.zeros((2, 8, 16), dtype=torch.bfloat16)]
+     + [torch.zeros((1, 2, 8, 16), dtype=torch.bfloat16)] * 2, 0, "bad shapes"),
+    ("k-ne-v", lambda: [torch.zeros((1, 2, 8, 16), dtype=torch.bfloat16),
+                        torch.zeros((1, 2, 8, 16), dtype=torch.bfloat16),
+                        torch.zeros((1, 2, 9, 16), dtype=torch.bfloat16)],
+     0, "bad shapes"),
+    ("batch", lambda: [torch.zeros((2, 2, 8, 16), dtype=torch.bfloat16)]
+     + [torch.zeros((1, 2, 8, 16), dtype=torch.bfloat16)] * 2, 0,
+     "does not match"),
+    ("head-dim", lambda: [torch.zeros((1, 2, 8, 32), dtype=torch.bfloat16)]
+     + [torch.zeros((1, 2, 8, 16), dtype=torch.bfloat16)] * 2, 0,
+     "does not match"),
+    ("h-mod-kv", lambda: [torch.zeros((1, 3, 8, 16), dtype=torch.bfloat16)]
+     + [torch.zeros((1, 2, 8, 16), dtype=torch.bfloat16)] * 2, 0,
+     "does not match"),
+    ("d48", lambda: [torch.zeros((1, 2, 8, 48), dtype=torch.bfloat16)] * 3, 0,
+     "takes D in"),
+    ("window", lambda: [torch.zeros((1, 2, 8, 16), dtype=torch.bfloat16)] * 3,
+     -1, "window < 0"),
+    ("grid", lambda: [torch.empty((1, 65536, 8, 16), dtype=torch.bfloat16,
+                                  device="meta")] * 3, 0, "65535"),
+    ("d-stride", lambda: [torch.zeros((1, 2, 16, 8), dtype=torch.bfloat16
+                                      ).transpose(2, 3)] * 3, 0,
+     "contiguous along D"),
+    ("misaligned", lambda: [_misaligned((1, 2, 8, 16))]
+     + [torch.zeros((1, 2, 8, 16), dtype=torch.bfloat16)] * 2, 0,
+     "16-byte aligned rows"),
+    ("row-stride", lambda: [torch.zeros((1, 2, 8, 20), dtype=torch.bfloat16
+                                        )[..., :16]] * 3, 0,
+     "16-byte aligned rows"),
+], ids=lambda c: c[0])
+def test_flash_checks_raise_as_before(case):
+    """What the kernel does not take raises ValueError with the messages
+    the wrapper has always given, whatever the route; nothing is built."""
+    _, make, window, match = case
+    q, k, v = make()
+    with pytest.raises(ValueError, match=match):
+        tflash.check_operands(q, k, v, window)
+    assert tflash._fn is None
+
+
+def test_flash_cpu_tensors_take_the_plain_version_on_every_route_shape():
+    """CPU tensors at a wgmma-route D (model layout, GQA, a window) and at
+    an mma_sync-route D give the plain version's bits and count no launch,
+    on either route."""
+    tflash.launches = 0
+    tflash.route_launches.update(dict.fromkeys(tflash.ROUTES, 0))
+    for D, window in ((64, 5), (16, 0)):
+        _, q = _both(26, (2, 12, 4, D), "bf16", D ** -0.5)
+        _, k = _both(27, (2, 12, 2, D), "bf16")
+        _, v = _both(28, (2, 12, 2, D), "bf16")
+        q, k, v = (x.transpose(1, 2) for x in (q, k, v))
+        got = tflash.flash_attention(q, k, v, True, window, 1.0)
+        np.testing.assert_array_equal(
+            _np(got), _np(ref.flash_attention_ref(q, k, v, True, window, 1.0)))
+    assert tflash.launches == 0
+    assert tflash.route_launches == {"mma_sync": 0, "wgmma": 0}
+    assert tflash._fn is None
 
 
 # --------------------------------------------------------------- mamba scan
