@@ -36,11 +36,18 @@
    and the reduced model on the card against the CPU; times the prefill
    PREFILL_REPEATS times more. Then frees all of it.
 5. Holds the selective-scan kernel (y and the final state) against its
-   plain version: the Pallas kernel's cases, ragged S, D = 640, N of 4, 8
-   and 16, and the falcon-mamba prefill shape (4, 1024, 8192, 16) with x
-   in bf16; and the matmul kernel at every falcon-mamba shape.
+   plain version: the Pallas kernel's cases, ragged S, D = 640, N of 1,
+   4, 8, 16, 32 and 64 (every padded instance), a ragged D (8190, rows
+   not 16-byte aligned), a long S (4096), more than 65 535 batch rows,
+   and the falcon-mamba prefill shape (4, 1024, 8192, 16) with x in bf16.
+   Each case prints its launch plan (``mamba_scan.plan``: lanes a
+   channel, states a lane, channels a block, time tile, stages), checks
+   that a second call gives the same bits and that its tolerance rejects
+   a zeroed and a 10 %-off output. Then the matmul kernel at every
+   falcon-mamba shape.
 6. Serves full-width falcon-mamba-7b the same way (64 Mamba layers, 14.6
-   GB of bf16 weights), with the same checks for matmul and mamba_scan.
+   GB of bf16 weights), with the same checks for matmul, and exactly one
+   scan launch a layer in prefill and none in decode.
 7. The paper's Category-I and Category-II workloads: holds the STREAM
    triad and Jacobi-2d kernels against their plain versions bit for bit
    (fp32 triad: at most 1 ulp, the count printed) at (32768, 32768) in
@@ -677,14 +684,24 @@ def scan_case(Bt, S, D, N, x_dtype, tag, model_like=False):
         B, C = randn(Bt, S, N), randn(Bt, S, N)
         x = randn(Bt, S, D).to(x_dtype)
     args = (dt, A, B, C, x)
+    p = kscan.plan(Bt, S, D, N, x.element_size())
+    before = kscan.launches
     y, h = kscan.mamba_scan(*args)
+    y2, h2 = kscan.mamba_scan(*args)
     y_want, h_want = ref.mamba_scan_ref(*args)
     torch.cuda.synchronize()
-    err = check_close(f"mamba_scan {tag} y", y, y_want, SCAN_TOL[x_dtype])
-    err_h = check_close(f"mamba_scan {tag} h_last", h, h_want, H_TOL)
-    check_discerns(f"mamba_scan {tag} y", y_want, SCAN_TOL[x_dtype])
-    check_discerns(f"mamba_scan {tag} h_last", h_want, H_TOL)
+    name = f"mamba_scan {tag} ({Bt},{S},{D},{N})"
+    if kscan.launches - before != 2:
+        raise AssertionError(f"{name}: {kscan.launches - before} kernel "
+                             f"launches for 2 calls")
+    err = check_close(f"{name} y", y, y_want, SCAN_TOL[x_dtype])
+    err_h = check_close(f"{name} h_last", h, h_want, H_TOL)
+    check_discerns(f"{name} y", y_want, SCAN_TOL[x_dtype])
+    check_discerns(f"{name} h_last", h_want, H_TOL)
+    if not (torch.equal(y, y2) and torch.equal(h, h2)):
+        raise AssertionError(f"{name}: two calls on the same inputs differ")
     y_abs, h_abs = y_want.float().abs(), h_want.abs()
+    del y2, h2
     ms = time_ms(lambda: kscan.mamba_scan(*args), [()])
     plain = time_ms(lambda: ref.mamba_scan_ref(*args), [()])
     es = x.element_size()
@@ -694,15 +711,19 @@ def scan_case(Bt, S, D, N, x_dtype, tag, model_like=False):
     bnd, by = bound_ms(nbytes, 6.0 * Bt * S * D * N, torch.float32,
                        exps=Bt * S * D * N)
     row = dict(tag=tag, Bt=Bt, S=S, D=D, N=N,
-               x_dtype=str(x_dtype).replace("torch.", ""), max_abs_err=err,
+               x_dtype=str(x_dtype).replace("torch.", ""), lanes=p.lanes,
+               states_per_lane=p.states_per_lane, channels=p.channels,
+               time_tile=p.time_tile, stages=p.stages, max_abs_err=err,
                h_last_max_abs_err=err_h, y_abs_mean=y_abs.mean().item(),
                y_abs_max=y_abs.max().item(), h_abs_mean=h_abs.mean().item(),
                h_abs_max=h_abs.max().item(), ms=ms, plain_ms=plain,
                library_ms=None, bound_ms=bnd, bound_by=by,
                bytes_bound_ms=nbytes / HBM_BYTES_S * 1e3,
                exp_bound_ms=Bt * S * D * N / EXP_RATE * 1e3)
-    print(f"mamba_scan {tag:>8} ({Bt},{S},{D},{N}) x {row['x_dtype']} "
-          f"err y {err:.2e} (|y| mean {row['y_abs_mean']:.2e} max "
+    print(f"mamba_scan {tag:>9} ({Bt},{S},{D},{N}) x {row['x_dtype']} "
+          f"plan G={p.lanes} states/lane={p.states_per_lane} "
+          f"channels/block={p.channels} tile={p.time_tile} "
+          f"stages={p.stages} err y {err:.2e} (|y| mean {row['y_abs_mean']:.2e} max "
           f"{row['y_abs_max']:.2e}) h {err_h:.2e} (|h| mean "
           f"{row['h_abs_mean']:.2e}) kernel {ms:.4f} ms  plain "
           f"{plain:.4f}  bound {bnd:.4f} ({by}; bytes "
@@ -719,7 +740,20 @@ def scan_phase(cfg):
     for Bt, S, D, N in ((1, 1000, 512, 16), (2, 37, 640, 4),
                         (3, 200, 384, 8)):
         rows.append(scan_case(Bt, S, D, N, torch.float32, "ragged"))
+    # every padded instance (N = 1 pads to 4, 32 and 64), B and C rows not
+    # 16-byte aligned (N = 1), more batch rows than a grid dimension held
+    # before the batch was folded into x
+    for Bt, S, D, N in ((2, 300, 640, 1), (2, 200, 512, 32),
+                        (1, 100, 384, 64), (65537, 2, 16, 4)):
+        rows.append(scan_case(Bt, S, D, N, torch.float32, f"N={N}"
+                              if Bt < 65536 else "Bt>65535"))
     rows.append(scan_case(2, 24, 128, 4, torch.bfloat16, "reduced",
+                          model_like=True))
+    rows.append(scan_case(2, 250, 8190, 16, torch.bfloat16, "ragged D",
+                          model_like=True))   # misaligned dt and x rows, ragged S
+    rows.append(scan_case(1, 4096, 1024, 16, torch.bfloat16, "long S",
+                          model_like=True))
+    rows.append(scan_case(2, 64, 8192, 64, torch.bfloat16, "N=64",
                           model_like=True))
     model = scan_case(BATCH, PROMPT, cfg.d_inner, cfg.ssm_state,
                       torch.bfloat16, "model", model_like=True)
@@ -771,6 +805,9 @@ def serve_phase(cfg):
         counts = {k: m.launches for k, m in mods.items()}
         routes = {r: n - pre_routes[r] for r, n in kmm.route_launches.items()}
         check_routes(cfg, pre_routes, routes, fa_routes)
+        if "mamba_scan" in mods:
+            check_scan_launches(cfg, pre_counts["mamba_scan"],
+                                counts["mamba_scan"])
         # the first full-size prefill grows the allocator's pool; repeats
         # show the steady state, and how far the host's dispatch spreads
         pre_ms_again = [serve.run_prefill(cfg, params, toks)[3]
@@ -830,6 +867,16 @@ def serve_phase(cfg):
                 prefill_launches=pre_counts, peak_memory_bytes=peak,
                 paths_vs_fp32=paths, reduced_vs_cpu=reduced,
                 continuation=seq[0].tolist())
+
+
+def check_scan_launches(cfg, prefill: int, total: int) -> None:
+    """One scan launch a Mamba layer in prefill, none in decode (the
+    decode recurrence is plain PyTorch)."""
+    got = {"prefill": prefill, "decode": total - prefill}
+    want = {"prefill": cfg.n_layers, "decode": 0}
+    if got != want:
+        raise AssertionError(f"{cfg.name}: mamba_scan launches {got}, "
+                             f"expected {want}")
 
 
 def check_routes(cfg, prefill: dict, decode: dict, flash: dict | None) -> None:

@@ -7,40 +7,74 @@
 // Replaces the TPU kernel `_scan_kernel` / `mamba_scan_pallas`
 // (src/repro/kernels/mamba_scan.py:27,51), which walks a sequential grid
 // axis over 128-step chunks and carries h in VMEM scratch. Blocks of a
-// CUDA grid run in no order, so the time loop moves inside the thread.
+// CUDA grid run in no order, so the time loop moves inside the block.
 //
 // What bounds it on an H100: per (b, t, d) it reads dt (4 B) and x and
-// writes y (2 B each in bf16), and it evaluates N exponentials. At the
-// falcon-mamba prefill shape (4, 1024, 8192, 16) that is 269 MB (0.080 ms
-// at 3.35 TB/s) against 537 M exponentials: at 16 per clock per SM on the
-// special-function units, 0.13 ms at 1.98 GHz. So the exponentials bound
-// it, then the bytes, and the recurrence itself is a chain of N
-// independent FMAs per step.
+// writes y (2 B each in bf16), and per (b, t, d, n) it evaluates one
+// exponential. At the falcon-mamba prefill shape (4, 1024, 8192, 16) a
+// layer is 269 MB (0.080 ms at 3.35 TB/s) against 537 M exponentials:
+// 0.128 ms at 16 a clock per SM on the special-function units (MUFU) at
+// 1.98 GHz. So the exponentials bound it on paper. Each state-step also
+// needs four FP32 instructions (dt * a, u * B, the h FMA, the y FMA); a
+// scheduler issues one instruction a clock and its MUFU takes a warp's
+// exponential in 8, so the kernel reaches the bound only if everything
+// else a step costs stays under about 3 instructions a state.
 //
-// What the design does about it:
-//   * One thread owns one (batch, channel) pair and keeps its N states and
-//     its row of A in registers for the whole sequence: no (Bt,S,D,N)
-//     tensor, no state traffic to memory, one h_last write at the end.
-//   * Blocks of 128 channels, a grid of (ceil(D/128), Bt): dt and x are
-//     read, and y written, coalesced across the channels of a warp.
-//   * Every channel of a block shares B_t and C_t, so a tile of 64 time
-//     steps of both is staged in shared memory once per block and read as
-//     broadcasts.
-//   * N is padded to the next of 4, 8, 16, 32, 64 with A = B = C = 0, so
-//     the padded states stay 0 without a branch; any S and D: the ragged
-//     time tile and the channels past D are masked.
-//   * The exponential is `expf`, the accurate one (not `__expf`), so the
-//     kernel rounds like the plain version to a few ulp.
-// Not yet: software-pipelined loads, N split over lanes, and a two-pass
-// chunked scan that spreads one sequence over more threads.
+// How the design gets there:
+//   * The state is split over lanes. G = NP / SPL neighbouring lanes own
+//     one channel, each SPL (4) of its NP states and the same slice of A
+//     in registers for the whole sequence: 4x the threads of one thread a
+//     channel at N = 16 (131 072 at the model's shape, about 31 warps an
+//     SM), so the MUFUs never wait on a dependent chain.
+//   * A's slice is scaled by log2(e) once, when it is loaded; each state
+//     then takes one `ex2.approx.ftz.f32` (a single MUFU.EX2, relative
+//     error about 2^-22, far inside the checks' 2e-3) of dt * a'.
+//   * What one step shares is paid once per lane, not per state: dt, x,
+//     u = dt * x, and B's and C's slices as 16-byte shared-memory loads.
+//     y's G partial sums are reduce-scattered over the lanes every G
+//     steps (G - 1 shuffles and adds, in a fixed order, so two calls give
+//     the same bits), after which lane g holds and stores y of step g.
+//   * Every per-step input is staged ahead of use. A producer warp keeps
+//     a ring of 2 or 3 time tiles of dt, x, B and C full with 16-byte
+//     cp.async (zero-filled past S and D; element by element where the
+//     rows are not 16-byte aligned); full and empty mbarriers per stage
+//     replace the block-wide barriers, so consumer warps never wait on
+//     one another or on device memory.
+//   * Padding is arithmetic, not branches: states past N have A = B = C
+//     = 0, channels past D and steps past S read dt = x = B = C = 0, so
+//     exp2(0) = 1 keeps h as it is; only the stores are masked.
+//   * The launch is planned in Python (`mamba_scan.plan`: NP, SPL,
+//     channels a block, time tile, stages, shared memory, grid), and this
+//     side refuses a plan that does not match the instance it picks.
+//     Batch is folded into the grid's x dimension, so Bt is not capped at
+//     65 535.
+//
+// Why not a two-pass chunked scan: correcting each chunk's y for the
+// state carried in needs exp(A * cumsum dt) for every step and state, a
+// second exponential per state-step, which doubles the bound (16.4 ms a
+// falcon-mamba-7b prefill against 8.2). Splitting N over lanes gives the
+// parallelism and keeps one exponential per state-step.
+//
+// Left: on the card the exponentials do not bind; the instructions
+// around them do (the four FP32 instructions of a state-step, then the
+// per-step loads, shuffles and stores), and they hold the kernel near
+// half its bound (PERF.md). Not tried: the tensor cores for u * B and
+// h . C, y staged for coalesced rows rather than stored by a lane per
+// step and channel. The Mamba decode recurrence stays plain PyTorch.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma_bf16.cuh"
+#include "sm90.cuh"
+
 namespace {
 
-constexpr int THREADS = 128;  // channels per block
-constexpr int TT = 64;        // time steps of B and C staged per tile
+constexpr int CONSUMERS = 256;            // consumer threads a block
+constexpr int THREADS = CONSUMERS + 32;   // and one producer warp
+constexpr int RESIDENT = 4;               // blocks an SM is planned for
+constexpr int SMEM_BLOCK = 232448;        // what one block may use (227 KB)
+constexpr float LOG2E = 1.4426950408889634f;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
@@ -50,100 +84,280 @@ __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
+template <typename E>
+__device__ __forceinline__ E zero() {
+  return E(0.f);
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 zero<__nv_bfloat16>() {
+  return __float2bfloat16_rn(0.f);
+}
 
-template <int NP, typename T>
-__global__ void __launch_bounds__(THREADS)
-mamba_scan(const float* __restrict__ dt, const float* __restrict__ A,
-           const float* __restrict__ Bm, const float* __restrict__ Cm,
-           const T* __restrict__ x, T* __restrict__ y,
-           float* __restrict__ h_last, int S, int D, int N) {
-  __shared__ __align__(16) float sB[TT][NP];
-  __shared__ __align__(16) float sC[TT][NP];
-  const int b = blockIdx.y;
-  const int d = blockIdx.x * THREADS + threadIdx.x;
-  const bool active = d < D;
+// 2^x as one MUFU.EX2; subnormal inputs and results flush to zero
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
 
-  float a[NP], h[NP];
-#pragma unroll
-  for (int n = 0; n < NP; ++n) {
-    a[n] = (active && n < N) ? A[(size_t)d * N + n] : 0.f;
-    h[n] = 0.f;
-  }
-  const float* Bb = Bm + (size_t)b * S * N;
-  const float* Cb = Cm + (size_t)b * S * N;
-  const size_t base = (size_t)b * S * D + d;
+// The mbarrier's current phase also waits for this thread's cp.async
+// copies issued so far (the pending count is raised now and lowered when
+// they land); the thread still arrives itself.
+__device__ __forceinline__ void cp_async_mbar_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.shared::cta.b64 [%0];\n" ::"r"(
+                   sm90::smem_u32(bar))
+               : "memory");
+}
 
-  for (int t0 = 0; t0 < S; t0 += TT) {
-    const int L = min(TT, S - t0);
-    __syncthreads();  // every thread is done with the previous tile
-    for (int i = threadIdx.x; i < TT * NP; i += THREADS) {
-      const int r = i / NP, n = i % NP;
-      const bool ok = r < L && n < N;
-      const size_t off = (size_t)(t0 + r) * N + n;
-      sB[r][n] = ok ? Bb[off] : 0.f;
-      sC[r][n] = ok ? Cb[off] : 0.f;
+// One operand's time tile into shared memory as [rows][W]: row r is
+// global row `row0 + r` (of pitch `ld` elements) from column `c0`; zeros
+// past `valid_rows` rows and past column `cols`. 16-byte copies when
+// `vec` (the rows are 16-byte aligned), else element by element.
+template <int W, typename E>
+__device__ __forceinline__ void copy_tile(E* dst, const E* src,
+                                          long long row0, int rows,
+                                          int valid_rows, int ld, int c0,
+                                          int cols, bool vec, int lane) {
+  if (vec) {
+    constexpr int V = 16 / sizeof(E);
+    constexpr int CW = W / V;  // 16-byte chunks a row
+    for (int i = lane; i < rows * CW; i += 32) {
+      const int r = i / CW, q = i % CW;
+      const int n = r < valid_rows ? min(max(cols - c0 - q * V, 0), V) : 0;
+      const E* s = n ? src + (row0 + r) * ld + c0 + q * V : src;
+      cp_async16(sm90::smem_u32(dst + r * W + q * V), s, n * (int)sizeof(E));
     }
-    __syncthreads();
-    if (!active) continue;
-#pragma unroll 4
-    for (int r = 0; r < L; ++r) {
-      const size_t off = base + (size_t)(t0 + r) * D;
-      const float dtv = dt[off];
-      const float u = dtv * to_f32(x[off]);
-      float acc = 0.f;
-#pragma unroll
-      for (int n = 0; n < NP; ++n) {
-        h[n] = expf(dtv * a[n]) * h[n] + u * sB[r][n];
-        acc += h[n] * sC[r][n];
-      }
-      store(y + off, acc);
+  } else {
+    for (int i = lane; i < rows * W; i += 32) {
+      const int r = i / W, c = i % W;
+      dst[i] = (r < valid_rows && c0 + c < cols) ? src[(row0 + r) * ld + c0 + c]
+                                                 : zero<E>();
     }
-  }
-  if (active) {
-#pragma unroll
-    for (int n = 0; n < NP; ++n)
-      if (n < N) h_last[((size_t)b * D + d) * N + n] = h[n];
   }
 }
 
-template <int NP, typename T>
+// Sums p (one partial a step, for G steps) over the G lanes of a channel
+// and returns the sum of step g to lane g: log2(G) rounds, each halving
+// the steps a lane holds. The order of every addition is fixed.
+template <int G>
+__device__ __forceinline__ float reduce_scatter(float (&p)[G], int g) {
+#pragma unroll
+  for (int m = G / 2; m >= 1; m /= 2) {
+    const bool hi = g & m;
+#pragma unroll
+    for (int i = 0; i < m; ++i) {
+      const float send = hi ? p[i] : p[i + m];
+      const float keep = hi ? p[i + m] : p[i];
+      p[i] = keep + __shfl_xor_sync(0xffffffffu, send, m);
+    }
+  }
+  return p[0];
+}
+
+// bytes of one ring stage: dt and x for CB channels, B and C for NP
+// states, `tt` time steps
+template <int NP, int CB, typename T>
+__host__ __device__ constexpr int stage_bytes(int tt) {
+  return tt * (CB * (4 + (int)sizeof(T)) + 2 * NP * 4);
+}
+
+template <int NP, int SPL, typename T>
+__global__ void __launch_bounds__(THREADS, RESIDENT)
+mamba_scan(const float* __restrict__ dt, const float* __restrict__ A,
+           const float* __restrict__ Bm, const float* __restrict__ Cm,
+           const T* __restrict__ x, T* __restrict__ y,
+           float* __restrict__ h_last, int S, int D, int N, int TT,
+           int stages) {
+  constexpr int G = NP / SPL;       // lanes a channel
+  constexpr int CB = CONSUMERS / G;  // channels a block
+  constexpr int UNROLL = G >= 8 ? 1 : 8 / G;  // groups of G steps
+  static_assert(SPL % 4 == 0 && NP % SPL == 0 && 32 % G == 0, "plan");
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int sbytes = stage_bytes<NP, CB, T>(TT);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + stages * sbytes);
+  uint64_t* empty = full + stages;
+
+  const int nblk = (D + CB - 1) / CB;
+  const int b = blockIdx.x / nblk;
+  const int d0 = (blockIdx.x % nblk) * CB;
+  const int lane = threadIdx.x % 32;
+  const int ntiles = (S + TT - 1) / TT;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      sm90::mbar_init(&full[s], 32);                // the producer's lanes
+      sm90::mbar_init(&empty[s], CONSUMERS / 32);   // one a consumer warp
+    }
+    sm90::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= CONSUMERS) {  // the producer warp
+    const bool vec_dt = reinterpret_cast<uintptr_t>(dt) % 16 == 0 && D % 4 == 0;
+    const bool vec_x = reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                       D % (16 / (int)sizeof(T)) == 0;
+    const bool vec_b = reinterpret_cast<uintptr_t>(Bm) % 16 == 0 && N % 4 == 0;
+    const bool vec_c = reinterpret_cast<uintptr_t>(Cm) % 16 == 0 && N % 4 == 0;
+    for (int k = 0; k < ntiles; ++k) {
+      const int slot = k % stages;
+      if (k >= stages) sm90::mbar_wait(&empty[slot], (k / stages - 1) & 1);
+      unsigned char* st = smem + slot * sbytes;
+      float* sdt = reinterpret_cast<float*>(st);
+      T* sx = reinterpret_cast<T*>(sdt + TT * CB);
+      float* sB = reinterpret_cast<float*>(sx + TT * CB);
+      float* sC = sB + TT * NP;
+      const int t0 = k * TT;
+      const int valid = min(TT, S - t0);
+      const long long row0 = (long long)b * S + t0;
+      copy_tile<CB>(sdt, dt, row0, TT, valid, D, d0, D, vec_dt, lane);
+      copy_tile<CB>(sx, x, row0, TT, valid, D, d0, D, vec_x, lane);
+      copy_tile<NP>(sB, Bm, row0, TT, valid, N, 0, N, vec_b, lane);
+      copy_tile<NP>(sC, Cm, row0, TT, valid, N, 0, N, vec_c, lane);
+      cp_async_mbar_arrive(&full[slot]);
+      sm90::mbar_arrive(&full[slot]);
+    }
+    cp_async_commit();  // the last copies land before the warp exits
+    cp_async_wait<0>();
+    return;
+  }
+
+  // consumers: lane g of channel c holds states g*SPL .. g*SPL + SPL-1
+  const int c = threadIdx.x / G;
+  const int g = threadIdx.x % G;
+  const int d = d0 + c;
+  const bool active = d < D;
+  float a[SPL], h[SPL];
+#pragma unroll
+  for (int s = 0; s < SPL; ++s) {
+    const int n = g * SPL + s;
+    a[s] = (active && n < N) ? A[(size_t)d * N + n] * LOG2E : 0.f;
+    h[s] = 0.f;
+  }
+  // lane g stores y of steps g, g + G, g + 2G, ...
+  T* yp = y + ((size_t)b * S + g) * D + d;
+  int left = S - g;  // steps from yp's on
+
+  for (int k = 0; k < ntiles; ++k) {
+    const int slot = k % stages;
+    sm90::mbar_wait(&full[slot], (k / stages) & 1);
+    const unsigned char* st = smem + slot * sbytes;
+    const float* sdt = reinterpret_cast<const float*>(st);
+    const T* sx = reinterpret_cast<const T*>(sdt + TT * CB);
+    const float* sB = reinterpret_cast<const float*>(sx + TT * CB) + g * SPL;
+    const float* sC = sB + TT * NP;
+#pragma unroll UNROLL
+    for (int r0 = 0; r0 < TT; r0 += G) {
+      float p[G];
+#pragma unroll
+      for (int j = 0; j < G; ++j) {
+        const int r = r0 + j;
+        const float dtv = sdt[r * CB + c];
+        const float u = dtv * to_f32(sx[r * CB + c]);
+        float bv[SPL], cv[SPL];
+#pragma unroll
+        for (int s = 0; s < SPL; s += 4) {
+          const float4 b4 = *reinterpret_cast<const float4*>(sB + r * NP + s);
+          const float4 c4 = *reinterpret_cast<const float4*>(sC + r * NP + s);
+          bv[s] = b4.x, bv[s + 1] = b4.y, bv[s + 2] = b4.z, bv[s + 3] = b4.w;
+          cv[s] = c4.x, cv[s + 1] = c4.y, cv[s + 2] = c4.z, cv[s + 3] = c4.w;
+        }
+        float acc = 0.f;
+#pragma unroll
+        for (int s = 0; s < SPL; ++s) {
+          h[s] = fmaf(ex2(dtv * a[s]), h[s], u * bv[s]);
+          acc = fmaf(h[s], cv[s], acc);
+        }
+        p[j] = acc;
+      }
+      const float yv = reduce_scatter<G>(p, g);
+      if (active && left > 0) store(yp, yv);
+      yp += (size_t)G * D;
+      left -= G;
+    }
+    __syncwarp();
+    if (lane == 0) sm90::mbar_arrive(&empty[slot]);
+  }
+  if (active) {
+#pragma unroll
+    for (int s = 0; s < SPL; ++s) {
+      const int n = g * SPL + s;
+      if (n < N) h_last[((size_t)b * D + d) * N + n] = h[s];
+    }
+  }
+}
+
+// The instance for (NP, SPL, T), after checking the plan against it.
+template <int NP, int SPL, typename T>
 cudaError_t launch(const void* dt, const void* A, const void* B,
                    const void* C, const void* x, void* y, void* h_last,
-                   int Bt, int S, int D, int N, cudaStream_t s) {
-  const dim3 grid((D + THREADS - 1) / THREADS, Bt);
-  mamba_scan<NP, T><<<grid, THREADS, 0, s>>>(
+                   int Bt, int S, int D, int N, int channels, int TT,
+                   int stages, int smem, long long grid, cudaStream_t s) {
+  constexpr int G = NP / SPL;
+  constexpr int CB = CONSUMERS / G;
+  const long long nblk = (D + CB - 1) / CB;
+  if (channels != CB || TT <= 0 || TT % G || TT % 8 || stages < 2 ||
+      smem != stages * (stage_bytes<NP, CB, T>(TT) + 16) || smem > SMEM_BLOCK ||
+      grid != (long long)Bt * nblk || grid > 0x7fffffffLL)
+    return cudaErrorInvalidValue;
+  auto kern = mamba_scan<NP, SPL, T>;
+  // once per instance, outside any CUDA-graph capture of later calls: any
+  // plan's shared memory, and the SM's whole carveout as shared memory so
+  // that RESIDENT blocks fit
+  static cudaError_t attr = [&] {
+    cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BLOCK);
+    if (e != cudaSuccess) return e;
+    return cudaFuncSetAttribute(kern,
+                                cudaFuncAttributePreferredSharedMemoryCarveout,
+                                cudaSharedmemCarveoutMaxShared);
+  }();
+  if (attr != cudaSuccess) return attr;
+  kern<<<(unsigned)grid, THREADS, smem, s>>>(
       static_cast<const float*>(dt), static_cast<const float*>(A),
       static_cast<const float*>(B), static_cast<const float*>(C),
       static_cast<const T*>(x), static_cast<T*>(y),
-      static_cast<float*>(h_last), S, D, N);
+      static_cast<float*>(h_last), S, D, N, TT, stages);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t launch_for(const void* dt, const void* A, const void* B,
-                       const void* C, const void* x, void* y, void* h_last,
-                       int Bt, int S, int D, int N, cudaStream_t s) {
-  if (N <= 4) return launch<4, T>(dt, A, B, C, x, y, h_last, Bt, S, D, N, s);
-  if (N <= 8) return launch<8, T>(dt, A, B, C, x, y, h_last, Bt, S, D, N, s);
-  if (N <= 16)
-    return launch<16, T>(dt, A, B, C, x, y, h_last, Bt, S, D, N, s);
-  if (N <= 32)
-    return launch<32, T>(dt, A, B, C, x, y, h_last, Bt, S, D, N, s);
-  return launch<64, T>(dt, A, B, C, x, y, h_last, Bt, S, D, N, s);
+cudaError_t launch_for(int NP, int SPL, const void* dt, const void* A,
+                       const void* B, const void* C, const void* x, void* y,
+                       void* h_last, int Bt, int S, int D, int N, int channels,
+                       int TT, int stages, int smem, long long grid,
+                       cudaStream_t s) {
+#define REPRO_SCAN(np, spl)                                                  \
+  if (NP == np && SPL == spl)                                                \
+    return launch<np, spl, T>(dt, A, B, C, x, y, h_last, Bt, S, D, N,        \
+                              channels, TT, stages, smem, grid, s);
+  REPRO_SCAN(4, 4)
+  REPRO_SCAN(8, 4)
+  REPRO_SCAN(16, 4)
+  REPRO_SCAN(32, 4)
+  REPRO_SCAN(64, 4)
+#undef REPRO_SCAN
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // Returns the cudaError_t of the launch (0 on success). The caller has
-// checked shapes, dtypes, contiguity, 1 <= N <= 64, Bt <= 65535 and
-// Bt, D > 0.
+// checked shapes, dtypes, contiguity, 1 <= N <= 64 and Bt, D > 0, and
+// passes the plan of kernels/mamba_scan.py (`plan`): the padded state
+// width NP, states a lane SPL, channels a block, the time tile, the ring's
+// stages, the dynamic shared memory in bytes and the grid; a plan that
+// does not match the instance returns cudaErrorInvalidValue unlaunched.
 extern "C" int repro_mamba_scan(const void* dt, const void* A, const void* B,
                                 const void* C, const void* x, void* y,
                                 void* h_last, int Bt, int S, int D, int N,
-                                int x_is_bf16, void* stream) {
+                                int x_is_bf16, int np, int spl, int channels,
+                                int time_tile, int stages, int smem,
+                                long long grid, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (x_is_bf16)
-    return launch_for<__nv_bfloat16>(dt, A, B, C, x, y, h_last, Bt, S, D, N,
-                                     s);
-  return launch_for<float>(dt, A, B, C, x, y, h_last, Bt, S, D, N, s);
+    return launch_for<__nv_bfloat16>(np, spl, dt, A, B, C, x, y, h_last, Bt,
+                                     S, D, N, channels, time_tile, stages,
+                                     smem, grid, s);
+  return launch_for<float>(np, spl, dt, A, B, C, x, y, h_last, Bt, S, D, N,
+                           channels, time_tile, stages, smem, grid, s);
 }

@@ -6,6 +6,7 @@ kernels themselves run only on the card (``python3 chip_smoke.py``)."""
 
 import math
 import os
+import re
 import subprocess
 import sys
 
@@ -541,6 +542,148 @@ def test_mamba_scan_plain_matches_pallas_bf16_x():
     np.testing.assert_allclose(_np(y), _np(want), rtol=1e-2, atol=1e-2)
     np.testing.assert_allclose(_np(h_last), _h_last_f64(*t), rtol=2e-3,
                                atol=2e-3)
+
+
+# (tag, Bt, S, D, N): the falcon-mamba-7b serving shape and its reduced
+# config's, the scan cases of chip_smoke.scan_phase, a D that is no
+# multiple of the channels a block, S = 1 and S no multiple of the time
+# tile, Bt = 1, and every N from 1 to 64
+_SCAN_PLAN_CASES = [
+    ("falcon-mamba-7b", 4, 1024, 8192, 16), ("reduced", 2, 24, 128, 4),
+    ("pallas", 1, 128, 512, 16), ("pallas", 2, 256, 1024, 16),
+    ("pallas", 2, 128, 640, 8), ("ragged", 1, 1000, 512, 16),
+    ("ragged", 2, 37, 640, 4), ("ragged", 3, 200, 384, 8),
+    ("N=1", 2, 300, 640, 1), ("N=32", 2, 200, 512, 32),
+    ("N=64", 1, 100, 384, 64), ("Bt>65535", 65537, 2, 16, 4),
+    ("ragged D", 2, 250, 8190, 16), ("long S", 1, 4096, 1024, 16),
+    ("N=64 model", 2, 64, 8192, 64), ("D=100", 1, 64, 100, 16),
+    ("S=1", 1, 1, 8192, 16), ("S=33", 3, 33, 64, 16),
+] + [(f"N={n}", 2, 50, 300, n) for n in range(1, 65)]
+
+
+def _scan_csrc() -> str:
+    path = os.path.join(os.path.dirname(tscan.__file__), "csrc", "mamba_scan.cu")
+    with open(path) as f:
+        return f.read()
+
+
+@pytest.mark.parametrize("x_bytes", [2, 4], ids=["bf16", "f32"])
+@pytest.mark.parametrize("case", _SCAN_PLAN_CASES,
+                         ids=[f"{c[0]}-{c[1]}x{c[2]}x{c[3]}x{c[4]}"
+                              for c in _SCAN_PLAN_CASES])
+def test_mamba_scan_plan(case, x_bytes):
+    """The padded width holds N in whole lanes; the grid covers every
+    (batch, channel) pair exactly once, batch-major as the kernel reads
+    blockIdx.x; the time tile is whole groups of 8 steps and of the lanes;
+    the ring's shared memory fits what a block may use, and the planned
+    resident blocks fit an SM's shared memory and warps."""
+    _, Bt, S, D, N = case
+    p = tscan.plan(Bt, S, D, N, x_bytes)
+    assert p.np in (4, 8, 16, 32, 64) and p.np >= N and p.np // 2 < max(N, 4)
+    assert p.lanes * p.states_per_lane == p.np and 32 % p.lanes == 0
+    assert p.channels * p.lanes == tscan.CONSUMERS
+    assert p.threads == tscan.CONSUMERS + 32 and p.threads % 32 == 0
+    nblk = -(-D // p.channels)
+    assert p.grid == Bt * nblk <= tscan.MAX_GRID
+    blocks = np.arange(p.grid)
+    b, d0 = blocks // nblk, (blocks % nblk) * p.channels
+    d = d0[:, None] + np.arange(p.channels)[None, :]
+    pairs = (b[:, None] * D + d)[d < D]
+    assert np.array_equal(np.bincount(pairs, minlength=Bt * D),
+                          np.ones(Bt * D, dtype=np.int64))
+    assert p.time_tile % 8 == 0 and p.time_tile % p.lanes == 0
+    assert p.time_tile <= 32 and p.stages >= 2
+    stage = p.time_tile * (p.channels * 4 + p.channels * x_bytes
+                           + 2 * p.np * 4)   # dt, x, B and C of a tile
+    assert p.smem_bytes == p.stages * (stage + 16)   # + two mbarriers
+    assert p.smem_bytes <= 227 * 1024
+    assert p.resident * (p.smem_bytes + 1024) <= 228 * 1024
+    assert p.resident * p.threads // 32 <= 64
+
+
+def test_mamba_scan_plan_takes_the_deepest_ring_that_fits():
+    """At the model's shape: 4 lanes of 4 states, 64 channels and 3 stages
+    of 32 steps a block, 512 blocks; fp32 x has room for 2 stages."""
+    p = tscan.plan(4, 1024, 8192, 16, 2)
+    assert (p.lanes, p.states_per_lane, p.channels, p.time_tile, p.stages,
+            p.grid) == (4, 4, 64, 32, 3, 512)
+    assert tscan.plan(4, 1024, 8192, 16, 4).stages == 2
+    assert tscan.plan(2, 24, 128, 4, 2).time_tile == 16   # cut to S
+
+
+def test_mamba_scan_plan_matches_the_instances_in_csrc():
+    """Every plan names a (NP, SPL) instance the C side instantiates, and
+    the C side's constants are the plan's."""
+    src = _scan_csrc()
+    instances = {(int(a), int(b)) for a, b in
+                 re.findall(r"REPRO_SCAN\((\d+), (\d+)\)\n", src)}
+    assert {(tscan.plan(1, 8, 64, n, 2).np, tscan.STATES_PER_LANE)
+            for n in range(1, tscan.MAX_N + 1)} == instances
+    for name, value in (("CONSUMERS", tscan.CONSUMERS),
+                        ("RESIDENT", tscan.RESIDENT),
+                        ("SMEM_BLOCK", tscan.SMEM_BLOCK)):
+        assert re.search(rf"constexpr int {name} = {value};", src), name
+
+
+def _scan_meta(Bt, S, D, N, x_dtype=torch.bfloat16):
+    def t(*shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device="meta")
+    return (t(Bt, S, D), t(D, N), t(Bt, S, N), t(Bt, S, N),
+            t(Bt, S, D, dtype=x_dtype))
+
+
+def test_mamba_scan_checks_take_more_than_65535_batch_rows():
+    """Batch is folded into the grid's x dimension: 70 000 rows pass the
+    checks, with one block a batch row at D = 64; a grid past 2^31 - 1
+    blocks raises. Nothing is built."""
+    p = tscan.check_operands(*_scan_meta(70000, 8, 64, 16))
+    assert p == tscan.plan(70000, 8, 64, 16, 2) and p.grid == 70000
+    with pytest.raises(ValueError, match="exceed the grid"):
+        tscan.check_operands(*_scan_meta(2 ** 31, 1, 1, 4))
+    assert tscan._fn is None
+
+
+@pytest.mark.parametrize("case", [
+    ("fp16 x", lambda: _scan_meta(1, 4, 8, 4, torch.float16), "fp32 or bf16"),
+    ("bf16 dt", lambda: (torch.empty((1, 4, 8), dtype=torch.bfloat16,
+                                     device="meta"),) + _scan_meta(1, 4, 8, 4)[1:],
+     "fp32 or bf16"),
+    ("2-d x", lambda: _scan_meta(1, 4, 8, 4)[:4]
+     + (torch.empty((4, 8), dtype=torch.bfloat16, device="meta"),), "bad shapes"),
+    ("A rows", lambda: (lambda m: (m[0], torch.empty((9, 4), device="meta"))
+                        + m[2:])(_scan_meta(1, 4, 8, 4)), "do not match"),
+    ("N=0", lambda: _scan_meta(1, 4, 8, 0), "1 <= N"),
+    ("N=65", lambda: _scan_meta(1, 4, 8, 65), "1 <= N"),
+    ("strided", lambda: (lambda m: m[:4] + (
+        torch.empty((1, 8, 4), dtype=torch.bfloat16,
+                    device="meta").transpose(1, 2),))(_scan_meta(1, 4, 8, 4)),
+     "contiguous"),
+], ids=lambda c: c[0])
+def test_mamba_scan_checks_raise(case):
+    """What the kernel does not take raises ValueError before anything is
+    built or launched."""
+    _, make, match = case
+    before = tscan.launches
+    with pytest.raises(ValueError, match=match):
+        tscan.check_operands(*make())
+    assert tscan.launches == before and tscan._fn is None
+
+
+def test_mamba_scan_module_plans_without_a_cuda_toolkit():
+    """Importing the wrapper and planning a launch build nothing: no nvcc
+    on PATH and no CUDA_HOME."""
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("CUDA_HOME", "CUDA_PATH")}
+    env["PATH"] = os.path.dirname(sys.executable)
+    code = ("from repro_torch.kernels import build, mamba_scan\n"
+            "p = mamba_scan.plan(4, 1024, 8192, 16, 2)\n"
+            "assert (p.lanes, p.channels, p.grid) == (4, 64, 512)\n"
+            "assert not build._loaded and mamba_scan._fn is None\n"
+            "assert mamba_scan.launches == 0\n"
+            "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], env=env, text=True,
+                         capture_output=True, timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
 
 
 # ------------------------------------------------------------ STREAM triad
