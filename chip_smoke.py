@@ -45,9 +45,27 @@
    that a second call gives the same bits and that its tolerance rejects
    a zeroed and a 10 %-off output. Then the matmul kernel at every
    falcon-mamba shape.
+   After it, the SVM phase (below) on the served params, and the launcher
+   with ``--svm-budget-frac 0.6 --svm-mode svm_aware``.
 6. Serves full-width falcon-mamba-7b the same way (64 Mamba layers, 14.6
    GB of bf16 weights), with the same checks for matmul, and exactly one
-   scan launch a layer in prefill and none in decode.
+   scan launch a layer in prefill and none in decode; then its SVM phase,
+   and the launcher with ``--svm-mode zero_copy``.
+
+   The SVM phase (``repro_torch.svm``): the served params are copied once
+   into pinned host memory, then for each mode (naive, svm_aware,
+   measured, zero_copy) at a pool of 0.6 of the weights, policy lrf, the
+   launcher's ``WeightStream`` replays 32 decode tokens: fused
+   (``decode_steps``, its host seconds printed), token by token, and on
+   the scalar session. It fails unless the scalar session's ``metrics()``
+   equals the batched one's with ``==`` and the fused pass equals the
+   token loop (but for its segment-cache hits: it fetches the step
+   segment once); unless a materialized run of 3 tokens, then a
+   ``fetch`` and a ``tensor`` of every leaf, leaves every pool tensor on
+   the card and equal (``torch.equal``) to the served param; and unless
+   the managed leaves in the pool stay within the budget after every
+   step and fetch. The launcher's ``svm stream:`` line must equal the
+   phase's for its mode.
 7. The paper's Category-I and Category-II workloads: holds the STREAM
    triad and Jacobi-2d kernels against their plain versions bit for bit
    (fp32 triad: at most 1 ulp, the count printed) at (32768, 32768) in
@@ -56,7 +74,13 @@
    orders them) at (32768, 32768) fp32 through ``repro_torch.kernels.ops``
    with launch counts; prints one ``dos_sweep`` of the port's copy of the
    SVM core. Then frees all of it.
-8. Prints one JSON line of kernel numbers, the nvidia-smi line, and last
+8. Prints the host link's copy rate (``link_bw``: a 1 GiB pinned tensor,
+   ``.to("cuda", non_blocking=True)``, CUDA events, median of 5; the
+   pageable rate beside it) and the serving rate of each model (its decode
+   flops as the weight stream counts them, 2 x batch x params a token,
+   over the decode step's device-busy time, and over its wall time): the
+   two numbers of ``repro_torch.core.costmodel``'s H100 preset.
+9. Prints one JSON line of kernel numbers, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
 Every time is the median over repeats, timed with CUDA events; matmul
@@ -116,6 +140,10 @@ CAP_GB = 8           # the simulated device of the dos_sweep line
 PATH_RATIO = 1.5     # see compare_paths
 MARGIN = 0.25        # a top-2 logit gap that bf16 noise at full width does not close
 PREFILL_REPEATS = 5
+SVM_FRAC = 0.6         # the SVM phase's pool, a fraction of the weights
+SVM_MATERIALIZED = 3   # tokens of the materialized SVM run
+LINK_BYTES = 1 << 30   # the host-link probe's tensor
+LINK_REPS = 5
 
 
 def smi() -> str:
@@ -775,7 +803,7 @@ def counters(cfg) -> dict:
 
 
 def serve_phase(cfg):
-    from repro_torch.bridge import init_params, leaf_sizes
+    from repro_torch.bridge import init_params, leaf_sizes, leaves
     from repro_torch.launch import serve
 
     mods = counters(cfg)
@@ -852,10 +880,14 @@ def serve_phase(cfg):
         paths = compare_paths(cfg, params, toks)
         pre_ms_p = paths.pop("plain_prefill_ms")
         peak = torch.cuda.max_memory_allocated()
+        free_memory()
+        svm = svm_phase(cfg, params)
+        n_params = sum(x.numel() for x in dict(leaves(params)).values())
         del params
         free_memory()
         reduced = reduced_vs_cpu(cfg.name)
-    return dict(arch=cfg.name, weight_bytes=weight_bytes, prefill_ms=pre_ms,
+    return dict(arch=cfg.name, weight_bytes=weight_bytes, n_params=n_params,
+                svm=svm, prefill_ms=pre_ms,
                 prefill_ms_repeated=pre_ms_again,
                 matmul_routes_prefill=pre_routes, matmul_routes_decode=routes,
                 flash_routes_prefill=fa_routes,
@@ -867,6 +899,200 @@ def serve_phase(cfg):
                 prefill_launches=pre_counts, peak_memory_bytes=peak,
                 paths_vs_fp32=paths, reduced_vs_cpu=reduced,
                 continuation=seq[0].tolist())
+
+
+# ------------------------------------------------------- SVM weight stream
+
+def svm_phase(cfg, params) -> dict:
+    """The SVM weight stream on the served params, every mode at a pool of
+    SVM_FRAC of the weights (see the module docstring): session
+    equivalence, a real pool bit-equal to the params, within budget."""
+    from repro_torch.bridge import leaves, tree_map
+    from repro_torch.core.costmodel import H100_HOST, H100_SERVE_FLOPS
+    from repro_torch.launch.serve import SVM_MODES, WeightStream
+    from repro_torch.svm.executor import host_leaf
+
+    t0 = time.perf_counter()
+    host = tree_map(lambda x: host_leaf(x, pin=True), params)
+    pin_s = time.perf_counter() - t0
+    served = dict(leaves(params))
+    nbytes = sum(x.numel() * x.element_size() for x in served.values())
+    print(f"svm {cfg.name}: {nbytes / 1e9:.3f} GB of params copied to "
+          f"pinned host memory in {pin_s:.2f} s; "
+          f"pool {SVM_FRAC} of the weights, policy lrf, {DECODE} tokens; "
+          f"H100 preset: link_bw {H100_HOST.link_bw / 1e9:.2f} GB/s, "
+          f"compute {H100_SERVE_FLOPS / 1e12:.3f} TFLOP/s", flush=True)
+    out = dict(pin_host_s=pin_s, modes={})
+    for mode in SVM_MODES:
+        def stream(**kw):
+            return WeightStream(host, BATCH, budget_frac=SVM_FRAC,
+                                policy="lrf", mode=mode, device="cuda", **kw)
+
+        fused = stream()
+        t0 = time.perf_counter()
+        fused.steps(DECODE)
+        acct_s = time.perf_counter() - t0
+        report = fused.report(DECODE)
+        loop, scalar = stream(), stream(scalar=True)
+        t0 = time.perf_counter()
+        for _ in range(DECODE):
+            loop.step()
+        loop_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for _ in range(DECODE):
+            scalar.step()
+        scalar_s = time.perf_counter() - t0
+        m_fused, m_loop = fused.executor.metrics(), loop.executor.metrics()
+        if scalar.executor.metrics() != m_loop:
+            raise AssertionError(f"svm {cfg.name} {mode}: the scalar "
+                                 f"session's metrics differ from the batched")
+        hits = (m_fused.pop("segment_cache_hits"),
+                m_loop.pop("segment_cache_hits"))
+        if m_fused != m_loop or (fused.executor.prefetch
+                                 and hits[0] != hits[1]):
+            raise AssertionError(f"svm {cfg.name} {mode}: decode_steps"
+                                 f"({DECODE}) differs from {DECODE} "
+                                 f"decode_step calls")
+        pool = svm_pool_checks(cfg.name, mode, stream(), served)
+        print(f"svm {cfg.name} {mode}: DOS {m_loop['dos']:.0f}%, simulated "
+              f"decode wall {m_loop['wall_s'] * 1e3:.2f} ms, "
+              f"{m_loop['migrations']} migrations / {m_loop['evictions']} "
+              f"evictions (e2m {m_loop['evict_to_mig']:.2f}); fused: "
+              f"{m_fused['segment_cache_misses']} compiled / {hits[0]} cached "
+              f"segments, accounting {acct_s:.4f} s on the host (token loop "
+              f"{loop_s:.4f} s, {hits[1]} cached; scalar {scalar_s:.4f} s): "
+              f"scalar == batched, fused == loop; materialized pool at most "
+              f"{pool['max_pool_bytes'] / 1e9:.3f} of {pool['budget'] / 1e9:.3f} "
+              f"GB, {pool['checked']} tensors equal to the params on cuda",
+              flush=True)
+        print(f"    {report}", flush=True)
+        out["modes"][mode] = dict(
+            report=report, accounting_host_s=acct_s, loop_host_s=loop_s,
+            scalar_host_s=scalar_s, segment_cache_hits_fused=hits[0],
+            segment_cache_hits_loop=hits[1], **pool,
+            **{k: m_loop[k] for k in ("dos", "wall_s", "migrations",
+                                      "evictions", "evict_to_mig",
+                                      "segment_cache_misses")})
+    return out
+
+
+def svm_pool_checks(name, mode, ws, served) -> dict:
+    """A materialized run of SVM_MATERIALIZED tokens, then ``fetch`` and
+    ``tensor`` of every leaf: each pool tensor and each returned tensor on
+    the card and equal to the served param; the managed leaves in the pool
+    within the budget after every step and fetch."""
+    ex = ws.executor
+    sizes = []
+
+    def within_budget(where):
+        sizes.append(ex.pool_bytes())
+        if sizes[-1] > ws.budget:
+            raise AssertionError(f"svm {name} {mode}: {sizes[-1]} bytes of "
+                                 f"managed leaves in the pool after {where}, "
+                                 f"over the budget of {ws.budget}")
+
+    def same(path, t, where):
+        if t.device.type != "cuda" or not torch.equal(t, served[path]):
+            raise AssertionError(f"svm {name} {mode}: {where} {path} is not "
+                                 f"the served param on cuda ({t.device})")
+
+    checked = 0
+    for step in range(SVM_MATERIALIZED):
+        ex.decode_step(ws.layer_paths, ws.flops, materialize=True)
+        within_budget(f"step {step}")
+    for path, t in ex.pool().items():
+        same(path, t, "pool tensor")
+        checked += 1
+    if not ex.pool():
+        raise AssertionError(f"svm {name} {mode}: the pool is empty after "
+                             f"a materialized run")
+    for (path,) in ws.layer_paths:
+        same(path, ex.fetch(path), "fetch of")
+        within_budget(f"the fetch of {path}")
+        checked += 1
+    for (path,) in ws.layer_paths:
+        same(path, ex.tensor(path), "tensor")
+        checked += 1
+    torch.cuda.synchronize()
+    return dict(budget=ws.budget, max_pool_bytes=max(sizes), checked=checked)
+
+
+def launcher_phase(name: str, mode: str, want: str) -> dict:
+    """``repro_torch.launch.serve.main`` at full width with the SVM flags:
+    it must serve and print the SVM phase's ``svm stream:`` line."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import serve
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        serve.main(["--arch", name, "--batch", str(BATCH), "--prompt-len",
+                    str(PROMPT), "--decode", str(DECODE),
+                    "--svm-budget-frac", str(SVM_FRAC), "--svm-mode", mode,
+                    "--svm-policy", "lrf"])
+    secs = time.perf_counter() - t0
+    out = buf.getvalue()
+    for line in out.splitlines():
+        print(f"launcher {name} {mode}: {line[:300]}", flush=True)
+    got = [ln for ln in out.splitlines() if ln.startswith("svm stream:")]
+    if got != [want]:
+        raise AssertionError(f"launcher {name} {mode}: printed {got}, the "
+                             f"SVM phase's line is {want!r}")
+    return dict(arch=name, mode=mode, seconds=secs, output=out)
+
+
+def link_rates() -> dict:
+    """GB/s of a host-to-device copy of LINK_BYTES with
+    ``.to("cuda", non_blocking=True)``, from pinned and from pageable
+    memory, timed with CUDA events: the median of LINK_REPS after a
+    warm-up."""
+    out = {}
+    for kind in ("pinned", "pageable"):
+        src = torch.empty(LINK_BYTES, dtype=torch.uint8,
+                          pin_memory=kind == "pinned")
+        src.fill_(1)
+        times = []
+        for _ in range(LINK_REPS + 1):
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+            dst = src.to("cuda", non_blocking=True)
+            t1.record()
+            t1.synchronize()
+            times.append(t0.elapsed_time(t1))
+            del dst
+        ms = statistics.median(times[1:])
+        out[kind] = dict(ms=ms, times_ms=times[1:],
+                         bytes_s=LINK_BYTES / (ms / 1e3))
+        del src
+    print(f"link_bw: host to device, {LINK_BYTES} bytes, median of "
+          f"{LINK_REPS}: pinned {out['pinned']['bytes_s'] / 1e9:.2f} GB/s "
+          f"({out['pinned']['ms']:.3f} ms), pageable "
+          f"{out['pageable']['bytes_s'] / 1e9:.2f} GB/s "
+          f"({out['pageable']['ms']:.3f} ms)", flush=True)
+    free_memory()
+    return out
+
+
+def serving_rate(served: dict) -> dict:
+    """The model's decode flops as the weight stream counts them (2 x
+    batch x params a token) over the decode step's device-busy time (the
+    profiled window of 4 tokens) and over its wall time (CUDA events)."""
+    flops = 2.0 * BATCH * served["n_params"]
+    busy_ms = served["profile_decode_4_tokens"][0] / 4
+    wall_ms = served["decode_ms_per_token"]
+    out = dict(flops_per_token=flops, busy_ms_per_token=busy_ms,
+               wall_ms_per_token=wall_ms,
+               flops_s_busy=flops / (busy_ms / 1e3),
+               flops_s_wall=flops / (wall_ms / 1e3))
+    print(f"serving rate {served['arch']}: {flops / 1e9:.3f} GFLOP a token "
+          f"(2 x {BATCH} x {served['n_params']} params) over {busy_ms:.3f} ms "
+          f"device busy = {out['flops_s_busy'] / 1e12:.3f} TFLOP/s; over "
+          f"{wall_ms:.3f} ms wall = {out['flops_s_wall'] / 1e12:.3f} TFLOP/s",
+          flush=True)
+    return out
 
 
 def check_scan_launches(cfg, prefill: int, total: int) -> None:
@@ -1050,11 +1276,15 @@ def main() -> int:
     print(build.ptxas_report(), flush=True)
 
     t_run = time.perf_counter()
+    link = link_rates()
     gemma = get_config("gemma3-1b")
     mm_rows, mm_phases = matmul_phase(gemma)
     mm_rows += matmul_edge_cases()
     fa_rows, fa_prefill = flash_phase(gemma)
     served = serve_phase(gemma)
+    free_memory()
+    launched = [launcher_phase("gemma3-1b", "svm_aware",
+                               served["svm"]["modes"]["svm_aware"]["report"])]
     free_memory()
     print(f"gemma3-1b phases done at {time.perf_counter() - t_run:.1f} s; "
           f"{torch.cuda.memory_allocated() / 1e9:.3f} GB still allocated",
@@ -1064,6 +1294,10 @@ def main() -> int:
     scan_rows, scan_prefill = scan_phase(mamba)
     mm_rows_m, mm_phases_m = matmul_phase(mamba)
     served_m = serve_phase(mamba)
+    free_memory()
+    launched.append(launcher_phase(
+        "falcon-mamba-7b", "zero_copy",
+        served_m["svm"]["modes"]["zero_copy"]["report"]))
     print(f"falcon-mamba-7b phases done at {time.perf_counter() - t_run:.1f} s",
           flush=True)
     free_memory()
@@ -1072,6 +1306,7 @@ def main() -> int:
     print(f"paper workloads phase done at {time.perf_counter() - t_run:.1f} s",
           flush=True)
 
+    rates = {s["arch"]: serving_rate(s) for s in (served, served_m)}
     mm_src = "src/repro_torch/kernels/csrc/matmul.cu"
     fa_src = "src/repro_torch/kernels/csrc/flash_attention.cu"
     scan_src = "src/repro_torch/kernels/csrc/mamba_scan.cu"
@@ -1112,7 +1347,8 @@ def main() -> int:
                        flash_attention=fa_rows, serve=served,
                        mamba_scan=scan_rows, matmul_mamba=mm_rows_m,
                        serve_mamba=served_m, paper_workloads=work,
-                       kernels=kernels,
+                       kernels=kernels, link_bw=link, serving_rate=rates,
+                       launcher=launched,
                        seconds=time.perf_counter() - t_run), f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(smi())

@@ -4,6 +4,8 @@ discrete-event simulator, and the paper's workload traces."""
 from repro_torch.core.costmodel import (
     CostParams,
     CostVector,
+    H100_HOST,
+    H100_SERVE_FLOPS,
     MI250X,
     eviction_cost,
     migration_cost,
@@ -44,7 +46,7 @@ from repro_torch.core.uvm import UVMManager, VABLOCK
 __all__ = [
     "AddressSpace", "Allocation", "Range", "pow2_floor", "split_allocation",
     "svm_alignment", "GB", "MB", "KB", "PAGE",
-    "CostParams", "CostVector", "MI250X",
+    "CostParams", "CostVector", "MI250X", "H100_HOST", "H100_SERVE_FLOPS",
     "migration_cost", "eviction_cost", "zerocopy_cost",
     "LRF", "LRU", "Clock", "RandomPolicy", "make_policy",
     "SVMManager", "Event", "DensitySample", "MigrationError",

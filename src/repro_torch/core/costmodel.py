@@ -66,6 +66,21 @@ class CostParams:
 # The paper's experimental node: MI250X GCD, 36 GB/s bidir Infinity Fabric.
 MI250X = CostParams()
 
+# NVIDIA H100 80GB HBM3, 700.00 W (nvidia-smi name and power limit), PCIe
+# to its host. ``link_bw`` is the pinned host-to-device copy rate that
+# ``chip_smoke.py`` measures (1 GiB pinned, ``.to("cuda",
+# non_blocking=True)``, CUDA events, median of 5): 54.716 GB/s (pageable:
+# 5.40 GB/s). Every other term is the paper's. The streaming executor's
+# default cost model.
+H100_HOST = CostParams(link_bw=54.716e9)
+
+# The streaming executor's default serving compute rate (flops/s) on the
+# same card (NVIDIA H100 80GB HBM3, 700.00 W): gemma3-1b's decode flops
+# as the weight stream counts them (2 x batch x params a token, batch 4:
+# 7.9985 GFLOP) over the decode step's device-busy time under
+# torch.profiler (5.707 ms a token), measured by ``chip_smoke.py``.
+H100_SERVE_FLOPS = 1.4015e12
+
 
 @dataclasses.dataclass
 class CostVector:

@@ -79,6 +79,7 @@ def simulate(
     engine: str = "batched",
     trace_cache=None,
     trace_key=None,
+    measured_pin: float = 0.0,
     **mgr_kwargs,
 ) -> RunResult:
     """Simulate one workload run.
@@ -97,7 +98,15 @@ def simulate(
 
     ``zero_copy_alloc_names`` may be the sentinel ``"biggest"``: it
     resolves to the workload's largest allocation of the *same build* used
-    for simulation."""
+    for simulation.
+
+    ``measured_pin`` enables measured prefetching (docs/prefetching.md):
+    the workload's own compiled touch columns are profiled
+    (`repro_torch.svm.hotset.HotSetProfile`) and the measured hot set — ranges
+    whose mean reuse interval fits the pool, highest touch frequency
+    first, byte-bounded to ``measured_pin`` of capacity — is pinned
+    up-front before the trace runs.  The profile is a pure function of
+    the trace, so batched and scalar engines pin the identical set."""
     if engine not in ("batched", "scalar"):
         raise ValueError(f"unknown engine {engine!r}; "
                          "available: 'batched', 'scalar'")
@@ -116,10 +125,31 @@ def simulate(
     for a in space.allocations:
         if a.name in zero_copy_alloc_names:
             mgr.set_zero_copy(a.alloc_id)
-    if engine == "batched":
-        from repro_torch.core.engine import compile_workload, execute_compiled
+    ct = None
+    if engine == "batched" or measured_pin > 0.0:
+        from repro_torch.core.engine import compile_workload
         ct = compile_workload(workload, space, max_ops=max_ops,
                               cache=trace_cache, key=trace_key)
+    if measured_pin > 0.0:
+        # measured prefetch: profile the workload's own compiled touch
+        # columns and pin the measured hot set before the trace runs.
+        # Lazy import — repro_torch.svm.hotset only reads frozen op columns.
+        # This is repro_torch.core, where driving mgr.pin directly is the
+        # sanctioned scalar-reference idiom (cf. `apply_trace`); the
+        # profile is a pure function of the trace, so the scalar engine
+        # pins the identical set the batched engine does.
+        import numpy as np
+
+        from repro_torch.svm.hotset import HotSetProfile
+
+        size_arr = np.asarray([r.end - r.start for r in space.ranges],
+                              dtype=np.int64)
+        prof = HotSetProfile.from_trace(ct, size_arr)
+        budget = float(measured_pin) * mgr.capacity
+        for rid in prof.select_hot_rids(mgr.capacity, budget):
+            mgr.pin(int(rid))
+    if engine == "batched":
+        from repro_torch.core.engine import execute_compiled
         execute_compiled(ct, mgr)
     else:
         apply_trace(mgr, workload.trace(space), max_ops=max_ops)

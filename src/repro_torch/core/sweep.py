@@ -60,7 +60,9 @@ class SweepPoint:
     tuple of allocation names, or the sentinel ``"biggest"`` (resolved in
     the worker to the workload's largest allocation).  ``manager`` selects
     the driver model: ``"svm"`` (default) or ``"uvm"`` (Table-1
-    baseline)."""
+    baseline).  ``measured_pin`` > 0 turns on measured prefetching
+    (docs/prefetching.md): the measured hot set, byte-bounded to that
+    fraction of capacity, is pinned before the trace runs."""
 
     workload: str
     total_bytes: int
@@ -72,13 +74,15 @@ class SweepPoint:
     engine: str = "batched"
     profile: bool = False
     manager: str = "svm"
+    measured_pin: float = 0.0
 
     @classmethod
     def make(cls, workload: str, total_bytes: int, capacity: int, *,
              policy: str = "lrf", wl_kwargs: dict | None = None,
              mgr_kwargs: dict | None = None,
              zero_copy: tuple | str = (), engine: str = "batched",
-             profile: bool = False, manager: str = "svm") -> "SweepPoint":
+             profile: bool = False, manager: str = "svm",
+             measured_pin: float = 0.0) -> "SweepPoint":
         """Build a point from plain dict kwargs, owning the sorted-tuple
         normalisation so every call site produces identical cache keys."""
         return cls(workload=workload, total_bytes=int(total_bytes),
@@ -86,7 +90,7 @@ class SweepPoint:
                    wl_kwargs=tuple(sorted((wl_kwargs or {}).items())),
                    mgr_kwargs=tuple(sorted((mgr_kwargs or {}).items())),
                    zero_copy=zero_copy, engine=engine, profile=profile,
-                   manager=manager)
+                   manager=manager, measured_pin=float(measured_pin))
 
     def key(self, params: CostParams) -> str:
         blob = json.dumps(
@@ -131,9 +135,13 @@ def hotset_grid(total_bytes: int, capacities: Sequence[int], *,
                 modes: Sequence[str] = ("static", "dynamic",
                                         "oscillating"),
                 ops: int = 4096, seed: int = 0,
+                measured_pins: Sequence[float] = (0.0,),
                 **hot_kwargs) -> "list[SweepPoint]":
     """Scenario grid over the synthetic hot-set adversaries
-    (`repro_torch.core.traces.HotSet`): mode × capacity × eviction policy.
+    (`repro_torch.core.traces.HotSet`): mode × capacity × eviction policy
+    (× measured-prefetch fraction when ``measured_pins`` lists more than
+    the off point — 0.0 is the paper's aggressive default, > 0 pins the
+    measured hot set up-front, docs/prefetching.md).
 
     Each mode shares one `trace_key` per capacity-independent axis, so
     `run_sweep` compiles three traces and replays them across the whole
@@ -142,8 +150,10 @@ def hotset_grid(total_bytes: int, capacities: Sequence[int], *,
     return [
         SweepPoint.make("hotset", total_bytes, cap, policy=pol,
                         wl_kwargs={"mode": mode, "ops": ops, "seed": seed,
-                                   **hot_kwargs})
+                                   **hot_kwargs},
+                        measured_pin=mp)
         for mode in modes for cap in capacities for pol in policies
+        for mp in measured_pins
     ]
 
 
@@ -181,6 +191,7 @@ def run_point(point: SweepPoint, params: CostParams = MI250X, *,
         zero_copy_alloc_names=zero_copy,
         trace_cache=cache,
         trace_key=key,
+        measured_pin=point.measured_pin,
         **dict(point.mgr_kwargs),
     )
     return res.row()
