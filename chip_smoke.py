@@ -45,12 +45,17 @@
    that a second call gives the same bits and that its tolerance rejects
    a zeroed and a 10 %-off output. Then the matmul kernel at every
    falcon-mamba shape.
-   After it, the SVM phase (below) on the served params, and the launcher
-   with ``--svm-budget-frac 0.6 --svm-mode svm_aware``.
+   After it, the spec check and the SVM phase (below) on the served
+   params, and the launcher with ``--svm-budget-frac 0.6 --svm-mode
+   svm_aware --requests 8 --sched-policy svm_aware --chaos``.
 6. Serves full-width falcon-mamba-7b the same way (64 Mamba layers, 14.6
    GB of bf16 weights), with the same checks for matmul, and exactly one
-   scan launch a layer in prefill and none in decode; then its SVM phase,
-   and the launcher with ``--svm-mode zero_copy``.
+   scan launch a layer in prefill and none in decode; then the spec check,
+   its SVM phase, and the launcher with ``--svm-mode zero_copy
+   --requests 8 --sched-policy admission --admit-by measured``.
+
+   The spec check: ``ModelSpec.from_params`` of the served CUDA params
+   must equal the spec of meta tensors of ``bridge.param_shapes``.
 
    The SVM phase (``repro_torch.svm``): the served params are copied once
    into pinned host memory, then for each mode (naive, svm_aware,
@@ -65,7 +70,21 @@
    the card and equal (``torch.equal``) to the served param; and unless
    the managed leaves in the pool stay within the budget after every
    step and fetch. The launcher's ``svm stream:`` line must equal the
-   phase's for its mode.
+   phase's for its mode, and its ``svm sched[...]`` block must equal
+   ``schedule_report`` of the phase's own ``run_schedule`` on the served
+   spec with the launcher's arguments.
+
+   The sched phase (``repro_torch.svm.scheduler``, on the host, after
+   falcon-mamba-7b's launcher run): both served specs round-robin, 8
+   requests (seed 3, mean interarrival 0.01 s), 32 tokens, a pool of 0.9
+   of the larger spec, ``pin_frac`` 0.4, each policy (fifo, admission,
+   svm_aware) clean and under ``FaultPlan.default(0)``. It fails unless
+   the fused, per-token and scalar tiers agree, per-request accounting
+   sums to the manager's, a rerun is bit-identical, and a chaos run
+   applies every event with no request failed. It prints each run's
+   simulated p50/p99 latency under the H100 preset, evictions a token,
+   peak DOS and the host seconds of each tier, and which headline
+   numbers svm_aware shares with admission.
 7. The paper's Category-I and Category-II workloads: holds the STREAM
    triad and Jacobi-2d kernels against their plain versions bit for bit
    (fp32 triad: at most 1 ulp, the count printed) at (32768, 32768) in
@@ -144,6 +163,24 @@ SVM_FRAC = 0.6         # the SVM phase's pool, a fraction of the weights
 SVM_MATERIALIZED = 3   # tokens of the materialized SVM run
 LINK_BYTES = 1 << 30   # the host-link probe's tensor
 LINK_REPS = 5
+# the sched phase's mix: both full-width specs round-robin over one pool
+# of 0.9 of the larger spec's bytes
+SCHED_REQUESTS = 8
+SCHED_FRAC = 0.9
+SCHED_MIX = dict(seed=3, mean_interarrival_s=0.01, tokens=DECODE,
+                 spec_choice="roundrobin", pin_frac=0.4)
+# what the sched phase prints and compares between policies
+SCHED_HEADLINE = ("latency_p50_s", "latency_p90_s", "latency_p99_s",
+                  "agg_tok_s", "makespan_s", "migrations", "evictions",
+                  "evictions_per_token", "dos_peak")
+# each model's launcher run: the SVM mode of its svm stream line, then the
+# multi-tenant flags of its svm sched block
+LAUNCHER_RUNS = {
+    "gemma3-1b": ("svm_aware", dict(policy="svm_aware", admit_by="bytes",
+                                    chaos=True)),
+    "falcon-mamba-7b": ("zero_copy", dict(policy="admission",
+                                          admit_by="measured", chaos=False)),
+}
 
 
 def smi() -> str:
@@ -877,6 +914,7 @@ def serve_phase(cfg):
             for name, ms, n in top:
                 print(f"    {ms:9.3f} ms  {n:5d}x  {name}", flush=True)
 
+        spec = served_spec(cfg, params)
         paths = compare_paths(cfg, params, toks)
         pre_ms_p = paths.pop("plain_prefill_ms")
         peak = torch.cuda.max_memory_allocated()
@@ -887,7 +925,7 @@ def serve_phase(cfg):
         free_memory()
         reduced = reduced_vs_cpu(cfg.name)
     return dict(arch=cfg.name, weight_bytes=weight_bytes, n_params=n_params,
-                svm=svm, prefill_ms=pre_ms,
+                spec=spec, svm=svm, prefill_ms=pre_ms,
                 prefill_ms_repeated=pre_ms_again,
                 matmul_routes_prefill=pre_routes, matmul_routes_decode=routes,
                 flash_routes_prefill=fa_routes,
@@ -1017,21 +1055,80 @@ def svm_pool_checks(name, mode, ws, served) -> dict:
     return dict(budget=ws.budget, max_pool_bytes=max(sizes), checked=checked)
 
 
-def launcher_phase(name: str, mode: str, want: str) -> dict:
-    """``repro_torch.launch.serve.main`` at full width with the SVM flags:
-    it must serve and print the SVM phase's ``svm stream:`` line."""
+def served_spec(cfg, params):
+    """``ModelSpec.from_params`` of the served CUDA params, which must equal
+    the spec of meta tensors of ``bridge.param_shapes(cfg)``."""
+    from repro_torch.bridge import param_shapes, tree_map
+    from repro_torch.svm import ModelSpec
+
+    t0 = time.perf_counter()
+    spec = ModelSpec.from_params(cfg.name, params, batch=BATCH)
+    secs = time.perf_counter() - t0
+    meta = tree_map(lambda sd: torch.empty(sd[0], dtype=sd[1], device="meta"),
+                    param_shapes(cfg))
+    if spec != ModelSpec.from_params(cfg.name, meta, batch=BATCH):
+        raise AssertionError(f"spec {cfg.name}: the served params' spec "
+                             f"differs from the meta tensors' spec")
+    print(f"spec {cfg.name}: {len(spec.leaves)} leaves, "
+          f"{spec.total_bytes / 1e9:.3f} GB, from the served params in "
+          f"{secs * 1e3:.2f} ms; equal to the meta tensors' spec", flush=True)
+    return spec
+
+
+def sched_report(spec, policy: str, admit_by: str, chaos: bool) -> str:
+    """``schedule_report`` of ``run_schedule`` on ``spec`` with the
+    arguments the launcher gives it for ``--requests SCHED_REQUESTS
+    --svm-budget-frac SVM_FRAC --decode DECODE`` and these flags."""
+    from repro_torch.launch.serve import schedule_report
+    from repro_torch.svm import FaultPlan, run_schedule
+
+    plan = (FaultPlan.default(0, n_requests=SCHED_REQUESTS, tokens=DECODE)
+            if chaos else None)
+    pool = max(int(spec.total_bytes * SVM_FRAC), 1)
+    return schedule_report(run_schedule(
+        [spec], SCHED_REQUESTS, pool, policy=policy, admit_by=admit_by,
+        seed=0, mean_interarrival_s=0.0, tokens=DECODE, evict_policy="lrf",
+        fault_plan=plan, thrash_watermark=None))
+
+
+def sched_block(out: str) -> str:
+    """The ``svm sched[...]`` line of a launcher's output and its indented
+    continuation lines."""
+    lines = out.splitlines()
+    starts = [i for i, ln in enumerate(lines) if ln.startswith("svm sched[")]
+    if len(starts) != 1:
+        return f"<{len(starts)} svm sched lines>"
+    block = [lines[starts[0]]]
+    for ln in lines[starts[0] + 1:]:
+        if not ln.startswith("  "):
+            break
+        block.append(ln)
+    return "\n".join(block)
+
+
+def launcher_phase(name: str, want: str, spec) -> dict:
+    """``repro_torch.launch.serve.main`` at full width with the SVM and
+    multi-tenant flags of ``LAUNCHER_RUNS[name]``: it must serve, print
+    the SVM phase's ``svm stream:`` line, and print the ``svm sched[...]``
+    block of this phase's own ``run_schedule`` on the served spec."""
     import contextlib
     import io
 
     from repro_torch.launch import serve
 
+    mode, sched = LAUNCHER_RUNS[name]
+    want_sched = sched_report(spec, **sched)
+    tenants = (["--requests", str(SCHED_REQUESTS), "--sched-policy",
+                sched["policy"], "--admit-by", sched["admit_by"]]
+               + (["--chaos"] if sched["chaos"] else []))
+    flags = ["--arch", name, "--batch", str(BATCH), "--prompt-len",
+             str(PROMPT), "--decode", str(DECODE),
+             "--svm-budget-frac", str(SVM_FRAC), "--svm-mode", mode,
+             "--svm-policy", "lrf"] + tenants
     buf = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
-        serve.main(["--arch", name, "--batch", str(BATCH), "--prompt-len",
-                    str(PROMPT), "--decode", str(DECODE),
-                    "--svm-budget-frac", str(SVM_FRAC), "--svm-mode", mode,
-                    "--svm-policy", "lrf"])
+        serve.main(flags)
     secs = time.perf_counter() - t0
     out = buf.getvalue()
     for line in out.splitlines():
@@ -1040,7 +1137,117 @@ def launcher_phase(name: str, mode: str, want: str) -> dict:
     if got != [want]:
         raise AssertionError(f"launcher {name} {mode}: printed {got}, the "
                              f"SVM phase's line is {want!r}")
-    return dict(arch=name, mode=mode, seconds=secs, output=out)
+    if sched_block(out) != want_sched:
+        raise AssertionError(f"launcher {name}: printed the block\n"
+                             f"{sched_block(out)}\nthe phase's own "
+                             f"run_schedule gives\n{want_sched}")
+    print(f"launcher {name}: svm stream line and svm sched block equal the "
+          f"phase's ({' '.join(tenants)})", flush=True)
+    return dict(arch=name, mode=mode, flags=flags, seconds=secs, output=out)
+
+
+# ---------------------------------------------------- multi-tenant schedule
+
+def tier_view(r: dict) -> dict:
+    """A run without the markers that differ between the scheduler's
+    tiers by design (as tests/test_fused_rounds.py strips them): the
+    ``fused`` flag, the concat-build and memo counters, and the fused
+    tier's count of rounds degraded to per-token replay."""
+    r = dict(r, shared_cache=dict(r["shared_cache"]))
+    r.pop("fused")
+    for k in ("shared_concats", "concat_memo_entries",
+              "concat_memo_evictions"):
+        r["shared_cache"].pop(k)
+    if "chaos" in r:
+        r["chaos"] = dict(r["chaos"])
+        r["chaos"].pop("degraded_rounds")
+    return r
+
+
+def check_conserved(tag: str, r: dict) -> None:
+    """Per-request accounting sums to the shared manager's aggregates (as
+    tests/test_chaos.py's ``assert_conserved``)."""
+    c, m = r["conservation"], r["mgr"]
+    if abs(c["svm_wall_s"] - m["wall_s"]) > 1e-9:
+        raise AssertionError(f"{tag}: per-request svm wall {c['svm_wall_s']} "
+                             f"!= the manager's {m['wall_s']}")
+    for k in ("migrations", "evictions", "bytes_migrated", "bytes_evicted"):
+        if c[k] != m[k]:
+            raise AssertionError(f"{tag}: per-request {k} {c[k]} != the "
+                                 f"manager's {m[k]}")
+
+
+def sched_phase(specs) -> dict:
+    """The multi-tenant scheduler on the host over the two served specs
+    (SCHED_MIX, SCHED_REQUESTS requests, a pool of SCHED_FRAC of the
+    larger spec), every policy clean and under ``FaultPlan.default(0)``,
+    at the H100 preset: fused == per-token == scalar, conservation, a
+    bit-identical rerun, and every chaos event applied with no request
+    failed."""
+    from repro_torch.core.costmodel import H100_HOST, H100_SERVE_FLOPS
+    from repro_torch.svm import FaultPlan, run_schedule
+    from repro_torch.svm.scheduler import POLICIES
+
+    cap = int(max(s.total_bytes for s in specs) * SCHED_FRAC)
+    print(f"sched: {' + '.join(s.arch for s in specs)} round-robin, "
+          f"{SCHED_REQUESTS} requests, {DECODE} tokens, pool "
+          f"{cap / 1e9:.3f} GB ({SCHED_FRAC} of the larger); H100 preset: "
+          f"link_bw {H100_HOST.link_bw / 1e9:.3f} GB/s, compute "
+          f"{H100_SERVE_FLOPS / 1e12:.4f} TFLOP/s", flush=True)
+    out = {}
+    for policy in POLICIES:
+        for chaos in (False, True):
+            tag = f"sched {policy}{' chaos' if chaos else ''}"
+
+            def run(**tier):
+                plan = (FaultPlan.default(0, n_requests=SCHED_REQUESTS,
+                                          tokens=DECODE) if chaos else None)
+                t0 = time.perf_counter()
+                r = run_schedule(specs, SCHED_REQUESTS, cap, policy=policy,
+                                 fault_plan=plan, **SCHED_MIX, **tier)
+                return r, time.perf_counter() - t0
+
+            (fused, fused_s), (per_tok, per_tok_s), (scalar, scalar_s) = (
+                run(fused=True), run(fused=False),
+                run(fused=False, scalar=True))
+            if not (fused["fused"] and not per_tok["fused"]
+                    and tier_view(fused) == tier_view(per_tok)
+                    == tier_view(scalar)):
+                raise AssertionError(f"{tag}: the fused, per-token and "
+                                     f"scalar tiers differ")
+            for r in (fused, per_tok, scalar):
+                check_conserved(tag, r)
+            if run(fused=True)[0] != fused:
+                raise AssertionError(f"{tag}: a rerun differs")
+            if fused["n_failed"]:
+                raise AssertionError(f"{tag}: {fused['n_failed']} requests "
+                                     f"failed")
+            if chaos and fused["chaos"]["injector"]["events_remaining"]:
+                raise AssertionError(f"{tag}: chaos events left unapplied: "
+                                     f"{fused['chaos']['injector']}")
+            print(f"{tag}: p50/p99 latency {fused['latency_p50_s'] * 1e3:.2f}"
+                  f"/{fused['latency_p99_s'] * 1e3:.2f} ms simulated, "
+                  f"{fused['evictions_per_token']:.2f} evictions a token, "
+                  f"peak DOS {fused['dos_peak']:.1f}% (offered "
+                  f"{fused['dos_offered']:.1f}%), agg {fused['agg_tok_s']:.1f} "
+                  f"tok/s; host {fused_s:.4f} s fused, {per_tok_s:.4f} "
+                  f"per-token, {scalar_s:.4f} scalar: tiers equal, "
+                  f"conserved, rerun equal"
+                  + (f", {fused['chaos']['injector']['events_applied']} "
+                     f"events applied" if chaos else ""), flush=True)
+            out[tag] = dict(
+                host_s=dict(fused=fused_s, per_token=per_tok_s,
+                            scalar=scalar_s),
+                dos_offered=fused["dos_offered"],
+                **{k: fused[k] for k in SCHED_HEADLINE})
+    for chaos in ("", " chaos"):
+        a, b = (out[f"sched {p}{chaos}"] for p in ("admission", "svm_aware"))
+        same = [k for k in SCHED_HEADLINE if a[k] == b[k]]
+        out[f"svm_aware == admission{chaos}"] = same
+        print(f"sched{chaos or ' clean'}: svm_aware equals admission in "
+              f"{len(same)} of {len(SCHED_HEADLINE)} headline numbers "
+              f"({', '.join(same) or 'none'})", flush=True)
+    return out
 
 
 def link_rates() -> dict:
@@ -1282,9 +1489,10 @@ def main() -> int:
     mm_rows += matmul_edge_cases()
     fa_rows, fa_prefill = flash_phase(gemma)
     served = serve_phase(gemma)
+    specs = [served.pop("spec")]
     free_memory()
-    launched = [launcher_phase("gemma3-1b", "svm_aware",
-                               served["svm"]["modes"]["svm_aware"]["report"])]
+    launched = [launcher_phase(
+        "gemma3-1b", served["svm"]["modes"]["svm_aware"]["report"], specs[0])]
     free_memory()
     print(f"gemma3-1b phases done at {time.perf_counter() - t_run:.1f} s; "
           f"{torch.cuda.memory_allocated() / 1e9:.3f} GB still allocated",
@@ -1294,11 +1502,15 @@ def main() -> int:
     scan_rows, scan_prefill = scan_phase(mamba)
     mm_rows_m, mm_phases_m = matmul_phase(mamba)
     served_m = serve_phase(mamba)
+    specs.append(served_m.pop("spec"))
     free_memory()
     launched.append(launcher_phase(
-        "falcon-mamba-7b", "zero_copy",
-        served_m["svm"]["modes"]["zero_copy"]["report"]))
+        "falcon-mamba-7b", served_m["svm"]["modes"]["zero_copy"]["report"],
+        specs[1]))
     print(f"falcon-mamba-7b phases done at {time.perf_counter() - t_run:.1f} s",
+          flush=True)
+    sched = sched_phase(specs)
+    print(f"sched phase done at {time.perf_counter() - t_run:.1f} s",
           flush=True)
     free_memory()
     work, weighted = workloads_phase()   # last: the serving phases run as before it
@@ -1348,7 +1560,7 @@ def main() -> int:
                        mamba_scan=scan_rows, matmul_mamba=mm_rows_m,
                        serve_mamba=served_m, paper_workloads=work,
                        kernels=kernels, link_bw=link, serving_rate=rates,
-                       launcher=launched,
+                       launcher=launched, sched=sched,
                        seconds=time.perf_counter() - t_run), f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(smi())

@@ -22,6 +22,23 @@ tok/s.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-1b \\
         --svm-budget-frac 0.6 --svm-mode svm_aware --svm-policy lrf
+
+With ``--requests N`` (N > 1, needs ``--svm-budget-frac``) the report adds
+the **multi-tenant scheduler** (`repro_torch.svm.scheduler`): N decode
+requests of this model, a seeded synthetic arrival process (``--arrival``
+= mean interarrival seconds on the simulated clock; 0 = all at once),
+contending for one shared SVM pool of the same fraction of the weights
+under ``--sched-policy fifo|admission|svm_aware`` (``--admit-by bytes|
+measured``; ``--thrash-watermark`` arms the thrash guard). ``--chaos``
+injects the default seeded fault plan (``--chaos-seed``,
+``--chaos-intensity``: capacity loss, slow pages, migration faults, a
+crash) and adds the recovery line. The schedule runs on the simulated
+clock after the timed loop, with the H100 preset's rates, and prints the
+per-request latency percentiles, aggregate tok/s and eviction pressure
+(`schedule_report`).
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-1b \\
+        --svm-budget-frac 0.6 --requests 8 --sched-policy svm_aware --chaos
 """
 
 from __future__ import annotations
@@ -37,7 +54,9 @@ from repro_torch.configs import ARCH_IDS, get_config, get_reduced
 from repro_torch.data import SyntheticLM
 from repro_torch.device import resolve_device
 from repro_torch.launch.steps import make_prefill_step, make_serve_step
-from repro_torch.svm import StreamingExecutor
+from repro_torch.svm import (FaultPlan, ModelSpec, StreamingExecutor,
+                             run_schedule)
+from repro_torch.svm.scheduler import ADMIT_MODES, POLICIES
 
 SVM_POLICIES = ("lrf", "lru", "clock", "random")
 SVM_MODES = ("naive", "svm_aware", "measured", "zero_copy")
@@ -185,6 +204,50 @@ def run_decode(cfg, params, tok, cache, steps: int, impl: str = "auto"):
     return outs, cache, timer.stop()
 
 
+def _chaos_line(r: dict) -> str:
+    """One-line chaos/recovery summary (empty without an injector)."""
+    ch = r.get("chaos")
+    if not ch or "injector" not in ch:
+        return ""
+    return (
+        f"\n  chaos[{ch['injector']['plan']} seed "
+        f"{ch['injector']['seed']}]: "
+        f"{ch['injector']['events_applied']}/"
+        f"{ch['injector']['events_total']} events, "
+        f"{ch['migration_faults']} migration faults / "
+        f"{ch['retries']} retries ({ch['retry_exhausted']} exhausted), "
+        f"{ch['crashes']} crashes, {ch['preemptions']} preemptions, "
+        f"{ch['resumes']} resumes, {ch['degraded_rounds']} degraded "
+        f"rounds, {r['n_failed']} failed, "
+        f"backoff {ch['backoff_wall_s'] * 1e3:.2f}ms")
+
+
+def schedule_report(r: dict) -> str:
+    """Three-line human summary of a `run_schedule` result dict (plus a
+    chaos/recovery line when a fault plan was injected)."""
+    sc = r["shared_cache"]
+    return (
+        f"svm sched[{r['policy']}]: {r['n_requests']} reqs, "
+        f"offered DOS {r['dos_offered']:.0f}% "
+        f"(peak admitted {r['dos_peak']:.0f}%), "
+        f"p50/p90/p99 latency "
+        f"{r['latency_p50_s'] * 1e3:.1f}/{r['latency_p90_s'] * 1e3:.1f}/"
+        f"{r['latency_p99_s'] * 1e3:.1f}ms, "
+        f"agg {r['agg_tok_s']:.0f} tok/s\n"
+        f"  {r['migrations']} migs / {r['evictions']} evicts "
+        f"(e2m {r['evict_to_mig']:.2f}, "
+        f"{r['evictions_per_token']:.2f} ev/tok), "
+        f"segment hit rate {r['segment_hit_rate'] * 100:.1f}% "
+        f"({r['segment_shared_hits']} cross-request replays)\n"
+        f"  shared cache: {sc['shared_segments']} segments, "
+        f"{sc['shared_lookup_hits']} hits / "
+        f"{sc['shared_lookup_misses']} misses, "
+        f"{sc['shared_relocations']} relocations, "
+        f"{sc['shared_concats']} round concats "
+        f"({'fused' if r.get('fused') else 'per-token'} replay)"
+        + _chaos_line(r))
+
+
 def main(argv: list[str] | None = None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="gemma3-1b", choices=list(ARCH_IDS))
@@ -199,7 +262,37 @@ def main(argv: list[str] | None = None) -> None:
                          "device pool of this fraction of the param bytes")
     ap.add_argument("--svm-policy", default="lrf", choices=SVM_POLICIES)
     ap.add_argument("--svm-mode", default="naive", choices=SVM_MODES)
+    ap.add_argument("--requests", type=int, default=1,
+                    help="multi-tenant: N concurrent decode requests of "
+                         "this model over one shared SVM pool (needs "
+                         "--svm-budget-frac)")
+    ap.add_argument("--arrival", type=float, default=0.0,
+                    help="mean interarrival seconds (simulated Poisson "
+                         "process; 0 = all requests arrive at once)")
+    ap.add_argument("--sched-policy", default="svm_aware",
+                    choices=POLICIES)
+    ap.add_argument("--admit-by", default="bytes", choices=ADMIT_MODES,
+                    help="what the admission watermark caps: total plan "
+                         "bytes, or the measured resident working set "
+                         "estimated from the spec's own touch columns "
+                         "(docs/prefetching.md)")
+    ap.add_argument("--chaos", action="store_true",
+                    help="inject the default seeded fault plan into the "
+                         "multi-tenant schedule (capacity loss, slow "
+                         "pages, migration faults, a crash) and report "
+                         "the recovery accounting")
+    ap.add_argument("--chaos-seed", type=int, default=0,
+                    help="seed for the default fault plan")
+    ap.add_argument("--chaos-intensity", type=float, default=1.0,
+                    help="scales the number of injected migration faults")
+    ap.add_argument("--thrash-watermark", type=float, default=None,
+                    help="evictions-per-token watermark for the runtime "
+                         "thrash guard (preempt + tighten admission); "
+                         "unset = guard off")
     args = ap.parse_args(argv)
+    if args.requests > 1 and args.svm_budget_frac <= 0.0:
+        ap.error("--requests > 1 needs --svm-budget-frac > 0 "
+                 "(the shared pool is sized from it)")
 
     device = resolve_device(args.device)
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
@@ -228,6 +321,25 @@ def main(argv: list[str] | None = None) -> None:
           f"on {device}")
     if stream is not None:
         print(stream.report(args.decode))
+    if args.requests > 1:
+        # multi-tenant accounting: N requests of this model contending
+        # for one shared pool (pure simulation — rides the same clock
+        # as the single-stream report above)
+        spec = ModelSpec.from_params(args.arch, params, batch=args.batch)
+        pool = max(int(spec.total_bytes * args.svm_budget_frac), 1)
+        plan = None
+        if args.chaos:
+            plan = FaultPlan.default(args.chaos_seed,
+                                     n_requests=args.requests,
+                                     tokens=args.decode,
+                                     intensity=args.chaos_intensity)
+        sched = run_schedule(
+            [spec], args.requests, pool, policy=args.sched_policy,
+            admit_by=args.admit_by,
+            seed=0, mean_interarrival_s=args.arrival,
+            tokens=args.decode, evict_policy=args.svm_policy,
+            fault_plan=plan, thrash_watermark=args.thrash_watermark)
+        print(schedule_report(sched))
     print("first request continuation:", seq[0].tolist())
 
 

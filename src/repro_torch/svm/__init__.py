@@ -1,8 +1,8 @@
-"""Executable SVM runtime of the port: range-granular host<->device weight
-streaming for oversubscribed serving, driven by the paper's
-range/fault/eviction model. The multi-tenant scheduler, fault injection
-and activation offload of ``repro.svm`` are not ported yet (ROADMAP.md
-Queue 1 items 5c and 10)."""
+"""Executable SVM runtime of the port: range-granular host<->device
+streaming for oversubscribed serving (weight streaming), training
+(activation offload), and multi-tenant serving over one shared device
+pool with seeded fault injection and bounded retry, driven by the paper's
+range/fault/eviction model. It exports what ``repro.svm`` exports."""
 
 from repro_torch.svm.planner import (
     ParamRanges,
@@ -11,13 +11,32 @@ from repro_torch.svm.planner import (
     tree_leaf_sizes,
 )
 from repro_torch.svm.executor import StreamingExecutor, run_layer_stream
+from repro_torch.svm.offload import (
+    OffloadPlan,
+    plan_offload,
+    record_offload,
+    simulate_offload,
+)
+from repro_torch.svm.faults import FaultEvent, FaultInjector, FaultPlan
 from repro_torch.svm.hotset import (
     HotSetProfile,
     ProfileCache,
     spec_profile,
     token_trace,
 )
+from repro_torch.svm.scheduler import (
+    ModelSpec,
+    PoolScheduler,
+    Request,
+    make_requests,
+    run_schedule,
+)
 
 __all__ = ["plan_param_ranges", "plan_leaf_ranges", "tree_leaf_sizes",
            "ParamRanges", "StreamingExecutor", "run_layer_stream",
-           "HotSetProfile", "ProfileCache", "spec_profile", "token_trace"]
+           "OffloadPlan", "plan_offload", "record_offload",
+           "simulate_offload", "ModelSpec", "PoolScheduler", "Request",
+           "make_requests", "run_schedule",
+           "FaultPlan", "FaultEvent", "FaultInjector",
+           "HotSetProfile", "ProfileCache", "spec_profile",
+           "token_trace"]
