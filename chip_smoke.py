@@ -85,7 +85,26 @@
    simulated p50/p99 latency under the H100 preset, evictions a token,
    peak DOS and the host seconds of each tier, and which headline
    numbers svm_aware shares with admission.
-7. The paper's Category-I and Category-II workloads: holds the STREAM
+
+   Every serve phase also checks that the served params are bit for bit
+   what init made (``param_sums``) after serving and after
+   ``compare_paths``.
+7. The later decoders (``NEW_ARCHS``): flash attention at their prefill
+   shapes (D = 64 at 32:8; D = 128 at 48:1 and at 32:8 with a 4096
+   window), the matmul kernel at granite-moe-1b-a400m's shapes, its 3·E
+   expert products a layer (``moe_case``, at capacity 1280 in prefill and
+   8 in decode) against ``torch.bmm``, and at granite-20b's decode
+   shapes; then lighter serve phases of granite-moe-1b-a400m,
+   granite-3-2b, chatglm3-6b, granite-20b and mixtral-8x7b (full width;
+   mixtral cut to DEPTH_CUT layers): the same launch, route and output
+   checks (the router and every expert product on wgmma in prefill and
+   on decode in decode), 2 prefill repeats, the device profile for
+   granite-moe and granite-20b only, ``compare_paths`` on the first
+   PATHS_LAYERS layers, and the reduced config against the CPU (MoE
+   layers replay the CPU's routing: ``RouteTape``). granite-moe also runs
+   the SVM phase and the launcher with ``--svm-budget-frac 0.6
+   --svm-mode svm_aware --requests 8``.
+8. The paper's Category-I and Category-II workloads: holds the STREAM
    triad and Jacobi-2d kernels against their plain versions bit for bit
    (fp32 triad: at most 1 ulp, the count printed) at (32768, 32768) in
    fp32 and bf16, above 2^31 elements and on ragged grids; runs Category
@@ -93,13 +112,13 @@
    orders them) at (32768, 32768) fp32 through ``repro_torch.kernels.ops``
    with launch counts; prints one ``dos_sweep`` of the port's copy of the
    SVM core. Then frees all of it.
-8. Prints the host link's copy rate (``link_bw``: a 1 GiB pinned tensor,
+9. Prints the host link's copy rate (``link_bw``: a 1 GiB pinned tensor,
    ``.to("cuda", non_blocking=True)``, CUDA events, median of 5; the
    pageable rate beside it) and the serving rate of each model (its decode
    flops as the weight stream counts them, 2 x batch x params a token,
    over the decode step's device-busy time, and over its wall time): the
    two numbers of ``repro_torch.core.costmodel``'s H100 preset.
-9. Prints one JSON line of kernel numbers, the nvidia-smi line, and last
+10. Prints one JSON line of kernel numbers, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
 Every time is the median over repeats, timed with CUDA events; matmul
@@ -111,6 +130,7 @@ read cold, as in a decode step, and are read after ``free_memory`` (with
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import math
@@ -180,7 +200,22 @@ LAUNCHER_RUNS = {
                                     chaos=True)),
     "falcon-mamba-7b": ("zero_copy", dict(policy="admission",
                                           admit_by="measured", chaos=False)),
+    "granite-moe-1b-a400m": ("svm_aware", dict(policy="svm_aware",
+                                               admit_by="bytes", chaos=False)),
 }
+# the decoders ported after the first two, served in this order by lighter
+# phases: NEW_PREFILL_REPEATS repeats, the device profile only for
+# NEW_PROFILED, the SVM phase and a launcher run only for the MoE arch
+# (pinned host copies of the larger ones would take 12 to 41 GB),
+# compare_paths on the first PATHS_LAYERS layers; mixtral-8x7b (93.4 GB in
+# bf16) at full width cut to DEPTH_CUT layers
+MOE_ARCH = "granite-moe-1b-a400m"
+NEW_ARCHS = (MOE_ARCH, "granite-3-2b", "chatglm3-6b", "granite-20b",
+             "mixtral-8x7b")
+NEW_PROFILED = (MOE_ARCH, "granite-20b")
+NEW_PREFILL_REPEATS = 2
+PATHS_LAYERS = 4
+DEPTH_CUT = {"mixtral-8x7b": 8}
 
 
 def smi() -> str:
@@ -550,7 +585,9 @@ def matmul_case(M, K, N, bt, dtype, tag, want_route, misalign=False):
 
 
 def projections(cfg) -> list[tuple[str, int, int, int]]:
-    """(tag, K, N, calls per layer) of every matmul of one layer."""
+    """(tag, K, N, calls per layer) of every matmul of one layer. A MoE
+    layer's expert products (tags in EXPERT_TAGS) run over an expert's
+    capacity rows, not over the tokens (``moe_case``)."""
     d = cfg.d_model
     if cfg.attention_free:
         di, dtr = cfg.d_inner, cfg.resolved_dt_rank
@@ -559,28 +596,112 @@ def projections(cfg) -> list[tuple[str, int, int, int]]:
                 ("dt_proj", dtr, di, 1), ("out_proj", di, d, 1)]
     f, hd = cfg.d_ff, cfg.resolved_head_dim
     nq, nkv = cfg.n_heads * hd, cfg.n_kv_heads * hd
-    return [("wq", d, nq, 1), ("wk,wv", d, nkv, 2),
-            ("wi_gate,wi_up", d, f, 2), ("attn wo", nq, d, 1),
-            ("mlp wo", f, d, 1)]
+    attn = [("wq", d, nq, 1), ("wk,wv", d, nkv, 2)]
+    if cfg.n_experts:
+        e = cfg.n_experts
+        return attn + [("router", d, e, 1),
+                       ("experts wi_gate,wi_up", d, f, 2 * e),
+                       ("attn wo", nq, d, 1), ("experts wo", f, d, e)]
+    mlp_in = ("wi_gate,wi_up", d, f, 2) if cfg.mlp_gated else ("wi_up", d, f, 1)
+    return attn + [mlp_in, ("attn wo", nq, d, 1), ("mlp wo", f, d, 1)]
 
 
-def matmul_phase(cfg):
-    """Every matmul shape of ``cfg``'s serving path, weighted by its calls
-    per decode token and per prefill; the LM head runs on the last
-    position only, in prefill as in decode."""
-    phases = {"decode": [], "prefill": []}
+EXPERT_TAGS = ("experts wi_gate,wi_up", "experts wo")
+
+
+def matmul_phase(cfg, phase_names=("decode", "prefill")):
+    """Every matmul shape of ``cfg``'s serving path outside MoE experts,
+    weighted by its calls per decode token and per prefill; the LM head
+    runs on the last position only, in prefill as in decode. MoE layers
+    add ``moe_case``'s row at the phase's capacity, weighted by the
+    layers."""
+    phases = {name: [] for name in phase_names}
     rows = []
     for phase, M, route in (("decode", BATCH, "decode"),
                             ("prefill", BATCH * PROMPT, "wgmma")):
+        if phase not in phases:
+            continue
         for tag, K, N, per in projections(cfg):
+            if tag in EXPERT_TAGS:
+                continue
             r = matmul_case(M, K, N, False, torch.bfloat16, tag, route)
             rows.append(r)
             phases[phase].append((r, per * cfg.n_layers))
+        if cfg.n_experts:
+            r = moe_case(cfg, M)
+            rows.append(r)
+            phases[phase].append((r, cfg.n_layers))
         r = matmul_case(BATCH, cfg.d_model, cfg.padded_vocab,
                         cfg.tie_embeddings, torch.bfloat16, "lm head", "decode")
         rows.append(r)
         phases[phase].append((r, 1))
     return rows, phases
+
+
+def moe_case(cfg, tokens: int):
+    """The 3·E expert products of one MoE layer for ``tokens`` tokens, as
+    ``repro_torch.models.moe`` launches them: ``wi_gate`` and ``wi_up`` over
+    each expert's (capacity, d) rows of the dispatch buffer and ``wo`` over
+    its (capacity, d_ff) rows, one matmul kernel launch each. Each product
+    is held against its plain version, with the route asserted and a
+    second call's bits against the first's; timed against the plain loop
+    and against ``torch.bmm`` over the stacked experts (one call per
+    weight matrix: the library's batched route, which the port does not
+    use)."""
+    from repro_torch.kernels import matmul as kmm
+    from repro_torch.kernels import ref
+    from repro_torch.models.moe import capacity
+
+    e, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff
+    M = capacity(cfg, tokens)
+    want_route = kmm.route(M, f, d, False, torch.bfloat16, (0, 0, 0))
+    g = torch.Generator(device="cuda").manual_seed(M * 7 + e)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device="cuda")
+                * scale).to(torch.bfloat16)
+    buf, h = randn(e, M, d), randn(e, M, f)
+    wg, wu, wo = (randn(e, d, f, scale=0.02), randn(e, d, f, scale=0.02),
+                  randn(e, f, d, scale=0.02))
+    products = [(buf, wg), (buf, wu), (h, wo)]
+
+    def kernel_path():
+        return [kmm.matmul(a[j], w[j]) for a, w in products for j in range(e)]
+
+    def plain_path():
+        return [ref.matmul_ref(a[j], w[j]) for a, w in products for j in range(e)]
+
+    before = dict(kmm.route_launches)
+    got, again, want = kernel_path(), kernel_path(), plain_path()
+    torch.cuda.synchronize()
+    taken = {r: n - before[r] for r, n in kmm.route_launches.items()
+             if n != before[r]}
+    tag = f"moe {cfg.name} experts (E={e}, cap={M}, d={d}, f={f})"
+    if taken != {want_route: 2 * 3 * e}:
+        raise AssertionError(f"{tag} took routes {taken}, expected "
+                             f"{want_route} x {2 * 3 * e}")
+    err = 0.0
+    for i, (x, y, w) in enumerate(zip(got, again, want)):
+        err = max(err, check_close(f"{tag} product {i}", x, w,
+                                   MM_TOL[torch.bfloat16]))
+        if not torch.equal(x, y):
+            raise AssertionError(f"{tag} product {i}: two calls differ")
+    check_discerns(tag, want[0], MM_TOL[torch.bfloat16])
+    del got, again, want
+    row = dict(tag=f"experts {cfg.name}", E=e, M=M, K=d, N=f, launches=3 * e,
+               route=want_route, max_abs_err=err)
+    row.update(timed_calls(kernel_path, plain_path,
+                           lambda: [torch.bmm(a, w) for a, w in products]))
+    nbytes = 2 * (3 * e * d * f + e * M * (d + f) + e * M * (2 * f + d))
+    row["bound_ms"], row["bound_by"] = bound_ms(nbytes, 2.0 * 3 * e * M * d * f,
+                                                torch.bfloat16)
+    row["bound_share"] = row["bound_ms"] / row["ms"]
+    print(f"{tag}: {3 * e} launches route={want_route} err={err:.2e} kernel "
+          f"{row['ms']:.4f} ms ({row['ms_cached']:.4f} cached)  plain "
+          f"{row['plain_ms']:.4f}  torch.bmm x3 {row['library_ms']:.4f}  "
+          f"bound {row['bound_ms']:.4f} ({row['bound_by']}; share "
+          f"{row['bound_share']:.2f})", flush=True)
+    return row
 
 
 def matmul_edge_cases():
@@ -839,7 +960,12 @@ def counters(cfg) -> dict:
     return {"matmul": kmm, "flash_attention": kfa}
 
 
-def serve_phase(cfg):
+def serve_phase(cfg, repeats: int = PREFILL_REPEATS, profile: bool = True,
+                svm: bool = True, paths_layers: int | None = None):
+    """Serve ``cfg`` at full width (see the module docstring). The lighter
+    phases of the later archs pass fewer prefill ``repeats``, skip the
+    device profile or the SVM phase, and run ``compare_paths`` on the
+    first ``paths_layers`` layers of the served params."""
     from repro_torch.bridge import init_params, leaf_sizes, leaves
     from repro_torch.launch import serve
 
@@ -850,8 +976,12 @@ def serve_phase(cfg):
     toks = serve.prompts(cfg, BATCH, PROMPT, "cuda")
     torch.cuda.synchronize()
     weight_bytes = sum(n for _, n in leaf_sizes(params))
+    init_peak = torch.cuda.max_memory_allocated()
+    sums = param_sums(params)
     print(f"serve {cfg.name}: init {weight_bytes / 1e9:.3f} GB of params in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"serve {cfg.name}: {cfg.n_layers} layers, peak memory after init "
+          f"{init_peak / 1e9:.3f} GB", flush=True)
     with torch.inference_mode():
         tok, _, cache, _ = serve.run_prefill(cfg, params, toks[:, :128])  # warm-up
         serve.run_decode(cfg, params, tok, cache, 2)
@@ -876,7 +1006,7 @@ def serve_phase(cfg):
         # the first full-size prefill grows the allocator's pool; repeats
         # show the steady state, and how far the host's dispatch spreads
         pre_ms_again = [serve.run_prefill(cfg, params, toks)[3]
-                        for _ in range(PREFILL_REPEATS)]
+                        for _ in range(repeats)]
         seq = torch.cat([tok] + decoded, dim=1)
         assert logits.shape == (BATCH, 1, cfg.padded_vocab), logits.shape
         assert torch.isfinite(logits.float()).all(), "non-finite prefill logits"
@@ -901,30 +1031,44 @@ def serve_phase(cfg):
               seq[0].tolist(), flush=True)
 
         # where the time goes: device-busy time under the profiler
-        prof_pre = profile_device(lambda: serve.run_prefill(cfg, params, toks))
-        prof_dec = profile_device(
-            lambda: serve.run_decode(cfg, params, seq[:, -1:], cache, 4))
+        prof_pre = prof_dec = None
+        if profile:
+            prof_pre = profile_device(
+                lambda: serve.run_prefill(cfg, params, toks))
+            prof_dec = profile_device(
+                lambda: serve.run_decode(cfg, params, seq[:, -1:], cache, 4))
+            for phase, (busy, wall, top), eager in (
+                    ("prefill", prof_pre, pre_ms), ("decode x4", prof_dec,
+                                                    4 * dec_ms / DECODE)):
+                print(f"profile {cfg.name} {phase}: device busy {busy:.2f} ms "
+                      f"of {eager:.2f} ms unprofiled ({wall:.2f} ms "
+                      f"profiled): idle share {1 - busy / eager:.3f}",
+                      flush=True)
+                for name, ms, n in top:
+                    print(f"    {ms:9.3f} ms  {n:5d}x  {name}", flush=True)
         del cache
-        for phase, (busy, wall, top), eager in (
-                ("prefill", prof_pre, pre_ms), ("decode x4", prof_dec,
-                                                4 * dec_ms / DECODE)):
-            print(f"profile {cfg.name} {phase}: device busy {busy:.2f} ms of "
-                  f"{eager:.2f} ms unprofiled ({wall:.2f} ms profiled): idle "
-                  f"share {1 - busy / eager:.3f}", flush=True)
-            for name, ms, n in top:
-                print(f"    {ms:9.3f} ms  {n:5d}x  {name}", flush=True)
 
         spec = served_spec(cfg, params)
-        paths = compare_paths(cfg, params, toks)
+        check_params_unchanged(cfg.name, params, sums, "while serving")
+        if paths_layers is None:
+            paths = compare_paths(cfg, params, toks)
+        else:
+            print(f"paths {cfg.name}: compare_paths on the first "
+                  f"{paths_layers} of {cfg.n_layers} layers (full width; the "
+                  f"fp32 copy of all of them would not fit)", flush=True)
+            paths = compare_paths(*depth_cut(cfg, params, paths_layers), toks)
+        check_params_unchanged(cfg.name, params, sums, "in compare_paths")
         pre_ms_p = paths.pop("plain_prefill_ms")
         peak = torch.cuda.max_memory_allocated()
         free_memory()
-        svm = svm_phase(cfg, params)
+        svm = svm_phase(cfg, params) if svm else None
         n_params = sum(x.numel() for x in dict(leaves(params)).values())
         del params
         free_memory()
         reduced = reduced_vs_cpu(cfg.name)
-    return dict(arch=cfg.name, weight_bytes=weight_bytes, n_params=n_params,
+    return dict(arch=cfg.name, n_layers=cfg.n_layers, paths_layers=paths_layers,
+                weight_bytes=weight_bytes, n_params=n_params,
+                init_peak_memory_bytes=init_peak,
                 spec=spec, svm=svm, prefill_ms=pre_ms,
                 prefill_ms_repeated=pre_ms_again,
                 matmul_routes_prefill=pre_routes, matmul_routes_decode=routes,
@@ -937,6 +1081,97 @@ def serve_phase(cfg):
                 prefill_launches=pre_counts, peak_memory_bytes=peak,
                 paths_vs_fp32=paths, reduced_vs_cpu=reduced,
                 continuation=seq[0].tolist())
+
+
+def param_sums(params) -> dict:
+    """Each leaf's bits summed as integers, one period slice at a time (a
+    whole stacked leaf widened to int64 would not fit): what a kernel that
+    writes into the served weights would change."""
+    from repro_torch.bridge import leaves
+
+    ints = {torch.bfloat16: torch.int16, torch.float32: torch.int32}
+    return {path: [int(t.view(ints[x.dtype]).sum(dtype=torch.int64))
+                   for t in (x if x.dim() > 2 else (x,))]
+            for path, x in leaves(params)}
+
+
+def check_params_unchanged(name: str, params, sums: dict, where: str) -> None:
+    now = param_sums(params)
+    changed = [(p, i) for p in now for i, (a, b) in
+               enumerate(zip(now[p], sums[p])) if a != b]
+    if changed:
+        raise AssertionError(f"serve {name}: the served params changed "
+                             f"{where} (leaf, period slice): {changed[:16]}")
+
+
+def depth_cut(cfg, params, n_layers: int):
+    """``cfg`` cut to its first ``n_layers`` layers (whole periods, no
+    remainder) and the served params of those layers, as views of the
+    stacked tensors."""
+    import dataclasses
+
+    from repro_torch.bridge import tree_map
+
+    per = len(cfg.layer_pattern)
+    if n_layers % per or cfg.n_remainder or n_layers > cfg.n_layers:
+        raise ValueError(f"{cfg.name}: cannot cut {cfg.n_layers} layers of "
+                         f"period {per} to {n_layers}")
+    cut = dataclasses.replace(cfg, n_layers=n_layers)
+    return cut, dict(params, periods=tree_map(lambda x: x[:n_layers // per],
+                                              params["periods"]))
+
+
+def new_archs_phase(t_run: float) -> dict:
+    """The decoders of NEW_ARCHS: flash attention at their prefill shapes
+    (D = 64 at 32:8; D = 128 at 48:1 and at 32:8 with a 4096 window), the
+    matmul shapes of the MoE arch (its expert products by ``moe_case``)
+    and of granite-20b's decode, then each arch's lighter serve phase, and
+    the MoE arch's SVM phase and launcher run."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfgs = {n: get_config(n) for n in NEW_ARCHS}
+    for n, layers in DEPTH_CUT.items():
+        cfgs[n] = dataclasses.replace(cfgs[n], n_layers=layers)
+    g32, g20, mix = (cfgs[n] for n in ("granite-3-2b", "granite-20b",
+                                       "mixtral-8x7b"))
+    flash = {
+        "d64": flash_case(BATCH, g32.n_heads, g32.n_kv_heads, PROMPT, PROMPT,
+                          g32.resolved_head_dim, True, 0, "d64 32:8", "wgmma",
+                          model_layout=True),
+        "d128": flash_case(BATCH, g20.n_heads, g20.n_kv_heads, PROMPT, PROMPT,
+                           g20.resolved_head_dim, True, 0, "d128 48:1",
+                           "wgmma", model_layout=True),
+        "d128-window": flash_case(BATCH, mix.n_heads, mix.n_kv_heads, PROMPT,
+                                  PROMPT, mix.resolved_head_dim, True,
+                                  mix.sliding_window, "d128 w4096", "wgmma",
+                                  model_layout=True)}
+    mm_moe, phases_moe = matmul_phase(cfgs[MOE_ARCH])
+    mm_20b, phases_20b = matmul_phase(g20, ("decode",))
+    free_memory()
+    served, launched = {}, None
+    for name in NEW_ARCHS:
+        cfg = cfgs[name]
+        if name in DEPTH_CUT:
+            print(f"serve {name}: full width, depth cut to {cfg.n_layers} of "
+                  f"{get_config(name).n_layers} layers", flush=True)
+        served[name] = serve_phase(
+            cfg, repeats=NEW_PREFILL_REPEATS, profile=name in NEW_PROFILED,
+            svm=name == MOE_ARCH, paths_layers=PATHS_LAYERS)
+        served[name]["depth_cut"] = (dict(n_layers=cfg.n_layers, of=get_config(
+            name).n_layers) if name in DEPTH_CUT else None)
+        spec = served[name].pop("spec")
+        free_memory()
+        if name == MOE_ARCH:
+            launched = launcher_phase(
+                name, served[name]["svm"]["modes"]["svm_aware"]["report"], spec)
+            free_memory()
+        print(f"{name} phases done at {time.perf_counter() - t_run:.1f} s",
+              flush=True)
+    return dict(flash=flash, matmul_moe=mm_moe, matmul_moe_phases=phases_moe,
+                matmul_granite_20b=mm_20b, matmul_granite_20b_phases=phases_20b,
+                served=served, launcher=launched)
 
 
 # ------------------------------------------------------- SVM weight stream
@@ -1348,26 +1583,43 @@ def compare_paths(cfg, params, toks, steps: int = 4) -> dict:
     the other. The check: the kernel path is no farther from fp32 than the
     plain path, relative L2 distance within PATH_RATIO of it at every step,
     and both bf16 paths pick fp32's greedy token wherever its top-2 gap
-    exceeds MARGIN."""
+    exceeds MARGIN. MoE layers: both bf16 paths replay the fp32 path's
+    routing (``RouteTape``), the kernel path's router logits must be no
+    farther from fp32's than PATH_RATIO x the plain path's, and the tokens
+    whose own choices differ from fp32's are counted."""
     from repro_torch.bridge import tree_map
-    from repro_torch.launch import serve
-    from repro_torch.models import transformer as tm
 
     params32 = tree_map(lambda x: x.float(), params)   # 4 bytes a weight
     setups = {"fp32": (params32, "torch"), "plain": (params, "torch"),
               "kernel": (params, "auto")}
+    tape = RouteTape() if cfg.n_experts else None
+
+    def play(name):
+        if tape:
+            tape.play(None if name == "fp32" else name)
+
+    with tape or contextlib.nullcontext():
+        return _compare_paths(cfg, toks, steps, setups, play, tape)
+
+
+def _compare_paths(cfg, toks, steps, setups, play, tape) -> dict:
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as tm
+
     logits, caches, out = {}, {}, {"steps": []}
     for name, (p, impl) in setups.items():
+        play(name)
         _, lg, caches[name], ms = serve.run_prefill(cfg, p, toks, impl=impl)
-        logits[name] = lg[:, -1]
+        logits[name] = lg[:, -1, :cfg.vocab]   # without the masked padding
         if name == "plain":
             out["plain_prefill_ms"] = ms
     for step in range(steps + 1):
         if step:
             for name, (p, impl) in setups.items():
+                play(name)
                 lg, caches[name] = tm.decode_step(p, cfg, tok, caches[name],
                                                   impl=impl)
-                logits[name] = lg[:, -1]
+                logits[name] = lg[:, -1, :cfg.vocab]
         ref = logits["fp32"].float()
         top2 = ref.topk(2, dim=-1).values
         decisive = (top2[:, 0] - top2[:, 1]) > MARGIN
@@ -1391,7 +1643,100 @@ def compare_paths(cfg, params, toks, steps: int = 4) -> dict:
         if row["kernel"] > PATH_RATIO * row["plain"]:
             raise AssertionError(f"kernel path farther from fp32 than "
                                  f"{PATH_RATIO} x the plain path: {row}")
+    if tape:
+        st = {n: tape.stats[n] for n in ("plain", "kernel")}
+        rel = {n: tape.router_rel_l2(n) for n in st}
+        out["router"] = dict(calls=len(tape.calls), rel_l2=rel,
+                             flips={n: st[n]["flips"] for n in st},
+                             max_flip_gap={n: st[n]["max_flip_gap"] for n in st})
+        print(f"paths router: {len(tape.calls)} route calls, both bf16 paths "
+              f"on the fp32 path's experts; router logits relative L2 to "
+              f"fp32: plain {rel['plain']:.3e}, kernel {rel['kernel']:.3e}; "
+              f"tokens whose own choices differ from fp32's: plain "
+              f"{st['plain']['flips']}, kernel {st['kernel']['flips']} "
+              f"(largest fp32 gap between their k-th and (k+1)-th logit: "
+              f"{max(s['max_flip_gap'] for s in st.values()):.3e})",
+              flush=True)
+        if rel["kernel"] > PATH_RATIO * rel["plain"]:
+            raise AssertionError(f"kernel path's router logits farther from "
+                                 f"fp32 than {PATH_RATIO} x the plain "
+                                 f"path's: {rel}")
     return out
+
+
+class RouteTape:
+    """MoE routing of a reference run, replayed on the runs held against it
+    (a context manager that wraps ``repro_torch.models.moe.route``). At a
+    near tie the expert a token picks depends on the last bit of its
+    router logits, so two correct runs that round differently (bf16 and
+    fp32, the card and the CPU) pick other experts for a few tokens, and
+    those tokens' whole layers differ. Within ``play(None)`` each route
+    call is recorded; within ``play(name)`` the run computes its own route
+    (its router kernel launched) and goes on with the recorded experts,
+    the gates taken from its own probabilities, so that every other tensor
+    can be held against the reference. Per replaying run it keeps the
+    router logits' distance to the recorded ones (summed squares and max
+    |err|) and the tokens whose own set of k experts differs, with the
+    reference's gap between the k-th and (k+1)-th logit of each (how far
+    from a tie the reference's choice was). ``elementwise`` also holds
+    each call's router logits within that tolerance."""
+
+    def __init__(self, elementwise: dict | None = None):
+        from repro_torch.models import moe
+        self.moe, self.route = moe, moe.route
+        self.elementwise = elementwise
+        self.calls, self.current, self.stats = [], None, {}
+
+    def __enter__(self):
+        self.moe.route = self._route
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route = self.route
+
+    def play(self, name: str | None) -> None:
+        """Record (None), or replay as the run ``name``."""
+        self.current = name
+        if name is not None:
+            self.stats.setdefault(name, dict(cursor=0, diff2=0.0, ref2=0.0,
+                                             max_err=0.0, flips=0,
+                                             max_flip_gap=0.0))
+
+    def router_rel_l2(self, name: str) -> float:
+        st = self.stats[name]
+        return math.sqrt(st["diff2"] / st["ref2"])
+
+    def _route(self, p, cfg, x, impl="auto"):
+        from repro_torch.kernels import ops
+
+        gate, idx, probs = self.route(p, cfg, x, impl)
+        logits = ops.matmul(x.reshape(-1, x.shape[-1]), p["router"],
+                            impl=impl).float()
+        if self.current is None:
+            self.calls.append((logits, idx))
+            return gate, idx, probs
+        st = self.stats[self.current]
+        want_logits, want_idx = (t.to(x.device)
+                                 for t in self.calls[st["cursor"]])
+        st["cursor"] += 1
+        if self.elementwise is not None:
+            check_close("router logits", logits.cpu(), want_logits.cpu(),
+                        self.elementwise)
+        d = logits - want_logits
+        st["diff2"] += d.square().sum().item()
+        st["ref2"] += want_logits.square().sum().item()
+        st["max_err"] = max(st["max_err"], d.abs().max().item())
+        flipped = (idx.sort(dim=-1).values
+                   != want_idx.sort(dim=-1).values).any(dim=-1)
+        if flipped.any():
+            srt = want_logits.sort(dim=-1, descending=True).values
+            gap = srt[:, cfg.top_k - 1] - srt[:, cfg.top_k]
+            st["flips"] += int(flipped.sum())
+            st["max_flip_gap"] = max(st["max_flip_gap"],
+                                     gap[flipped].max().item())
+        top = probs.gather(1, want_idx)
+        return ((top / top.sum(dim=-1, keepdim=True)).to(x.dtype), want_idx,
+                probs)
 
 
 def reduced_vs_cpu(name: str) -> dict:
@@ -1400,7 +1745,9 @@ def reduced_vs_cpu(name: str) -> dict:
     on the CPU, same params and prompts; prefill logits and 8 decode steps
     past prompt_len, teacher-forced on the CPU's tokens, elementwise
     within MODEL_TOL. Mamba mixers get the LOUD_MODEL gains: at their init
-    they leave the logits unchanged within any tolerance."""
+    they leave the logits unchanged within any tolerance. MoE layers
+    replay the CPU's routing (``RouteTape``); the error of the card's own
+    routing is printed beside it."""
     from repro_torch.bridge import init_params, tree_map
     from repro_torch.configs import get_reduced
     from repro_torch.launch import serve
@@ -1415,18 +1762,51 @@ def reduced_vs_cpu(name: str) -> dict:
         mixer["dt_bias"].zero_()
     p_gpu = tree_map(lambda x: x.to("cuda"), p_cpu)
     toks = serve.prompts(cfg, 2, 24, "cpu")
-    tok, lc, cache_c, _ = serve.run_prefill(cfg, p_cpu, toks)
-    _, lg, cache_g, _ = serve.run_prefill(cfg, p_gpu, toks.to("cuda"))
-    errs = [check_close("reduced prefill", lg.cpu(), lc, MODEL_TOL)]
-    for _ in range(8):
-        lc, cache_c = tm.decode_step(p_cpu, cfg, tok, cache_c)
-        lg, cache_g = tm.decode_step(p_gpu, cfg, tok.to("cuda"), cache_g)
-        errs.append(check_close("reduced decode", lg.cpu(), lc, MODEL_TOL))
-        tok = lc[:, -1].argmax(dim=-1).int()[:, None]
-    print(f"reduced {name}, card kernels vs CPU plain: max |err| prefill "
-          f"{errs[0]:.3e}, 8 decode steps {max(errs[1:]):.3e} "
-          f"(tolerance {MODEL_TOL})", flush=True)
-    return dict(prefill_max_abs_err=errs[0], decode_max_abs_err=max(errs[1:]))
+
+    def run(params, device, fed=None):
+        """Prefill logits and 8 decode steps' logits; decode is fed
+        ``fed`` (the CPU's greedy tokens), or its own greedy tokens."""
+        tok, lg, cache, _ = serve.run_prefill(cfg, params, toks.to(device))
+        logits, own = [lg.cpu()], [tok.cpu()]
+        for i in range(8):
+            tok = (fed[i] if fed else own[-1]).to(device)
+            lg, cache = tm.decode_step(params, cfg, tok, cache)
+            logits.append(lg.cpu())
+            own.append(lg[:, -1].argmax(dim=-1).int()[:, None].cpu())
+        return logits, own
+
+    tape = RouteTape(elementwise=MODEL_TOL) if cfg.n_experts else None
+    with tape or contextlib.nullcontext():
+        if tape:
+            tape.play(None)
+        want, fed = run(p_cpu, "cpu")
+        if tape:
+            tape.play("card")
+        got, _ = run(p_gpu, "cuda", fed)
+    errs = [check_close("reduced prefill" if i == 0 else "reduced decode",
+                        g, w, MODEL_TOL) for i, (g, w) in enumerate(zip(got, want))]
+    out = dict(prefill_max_abs_err=errs[0], decode_max_abs_err=max(errs[1:]))
+    line = (f"reduced {name}, card kernels vs CPU plain: max |err| prefill "
+            f"{errs[0]:.3e}, 8 decode steps {max(errs[1:]):.3e} "
+            f"(tolerance {MODEL_TOL})")
+    if tape:
+        own, _ = run(p_gpu, "cuda", fed)          # the card's own routing
+        st = tape.stats["card"]
+        out.update(route_calls=len(tape.calls), route_flips=st["flips"],
+                   route_flip_max_gap=st["max_flip_gap"],
+                   router_logits_max_abs_err=st["max_err"],
+                   own_routing_max_abs_err=max(
+                       (g.float() - w.float()).abs().max().item()
+                       for g, w in zip(own, want)))
+        line += (f"; MoE routing replayed from the CPU over "
+                 f"{len(tape.calls)} route calls, router logits within "
+                 f"tolerance (max |err| {st['max_err']:.3e}), {st['flips']} "
+                 f"tokens choose other experts on the card (largest CPU gap "
+                 f"between their k-th and (k+1)-th logit: "
+                 f"{st['max_flip_gap']:.3e}); with the card's own routing "
+                 f"max |err| {out['own_routing_max_abs_err']:.3e}")
+    print(line, flush=True)
+    return out
 
 
 def profile_device(fn):
@@ -1513,6 +1893,9 @@ def main() -> int:
     print(f"sched phase done at {time.perf_counter() - t_run:.1f} s",
           flush=True)
     free_memory()
+    new = new_archs_phase(t_run)
+    launched.append(new.pop("launcher"))
+    free_memory()
     work, weighted = workloads_phase()   # last: the serving phases run as before it
     free_memory()
     print(f"paper workloads phase done at {time.perf_counter() - t_run:.1f} s",
@@ -1553,6 +1936,25 @@ def main() -> int:
                   "src/repro_torch/kernels/csrc/jacobi2d.cu",
                   "src/repro/kernels/jacobi2d.py:20"),
     ]
+    s32, s20, smoe = (new["served"][n] for n in ("granite-3-2b", "granite-20b",
+                                                  MOE_ARCH))
+    moe_dec, moe_pre = split(smoe, "matmul")
+    moe_phases = new.pop("matmul_moe_phases")   # (row, calls): not for the json
+    g20_phases = new.pop("matmul_granite_20b_phases")
+    kernels += [
+        summarize("flash_attention@prefill-d64",
+                  [(new["flash"]["d64"], s32["n_layers"])],
+                  s32["launches"]["flash_attention"], fa_src, fa_rep),
+        summarize("flash_attention@prefill-d128",
+                  [(new["flash"]["d128"], s20["n_layers"])],
+                  s20["launches"]["flash_attention"], fa_src, fa_rep),
+        summarize("matmul@moe-prefill", moe_phases["prefill"], moe_pre,
+                  mm_src, mm_rep),
+        summarize("matmul@moe-decode", moe_phases["decode"], moe_dec,
+                  mm_src, mm_rep),
+        summarize("matmul@granite-20b-decode", g20_phases["decode"],
+                  split(s20, "matmul")[0], mm_src, mm_rep),
+    ]
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(dict(card=card, torch=torch.__version__, matmul=mm_rows,
@@ -1560,7 +1962,7 @@ def main() -> int:
                        mamba_scan=scan_rows, matmul_mamba=mm_rows_m,
                        serve_mamba=served_m, paper_workloads=work,
                        kernels=kernels, link_bw=link, serving_rate=rates,
-                       launcher=launched, sched=sched,
+                       launcher=launched, sched=sched, new_archs=new,
                        seconds=time.perf_counter() - t_run), f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(smi())

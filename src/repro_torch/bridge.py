@@ -19,8 +19,8 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.models.config import (ATTN, ATTN_LOCAL, MAMBA, MLP, NONE,
-                                      ModelConfig)
+from repro_torch.models.config import (ATTN, ATTN_LOCAL, MAMBA, MLP, MOE,
+                                      NONE, ModelConfig)
 
 Shape = tuple[int, ...]
 BF16, FP32 = torch.bfloat16, torch.float32
@@ -41,16 +41,22 @@ def _layer_shapes(cfg: ModelConfig, mixer: str, ffn: str) -> dict:
     d = cfg.d_model
     if mixer == MAMBA and ffn == NONE:
         return {"norm1": ((d,), BF16), "mixer": _mamba_shapes(cfg)}
-    if mixer not in (ATTN, ATTN_LOCAL) or ffn != MLP:
+    if mixer not in (ATTN, ATTN_LOCAL) or ffn not in (MLP, MOE):
         raise NotImplementedError(
-            f"layer kind ({mixer}, {ffn}) is not ported yet: only dense "
-            f"attention + MLP and Mamba layers (ROADMAP.md Queue 1 items 6 "
-            f"and 8)")
+            f"layer kind ({mixer}, {ffn}) is not ported yet: only attention "
+            f"+ MLP or MoE and Mamba layers (cross-attention comes with "
+            f"ROADMAP.md Queue 1 item 8, Mamba layers with an FFN with item "
+            f"11)")
     hd, f = cfg.resolved_head_dim, cfg.d_ff
     nq, nkv = cfg.n_heads * hd, cfg.n_kv_heads * hd
-    ffn_p = {"wi_up": ((d, f), BF16), "wo": ((f, d), BF16)}
-    if cfg.mlp_gated:
-        ffn_p["wi_gate"] = ((d, f), BF16)
+    if ffn == MOE:   # moe_init (repro/models/moe.py:31-39)
+        e = cfg.n_experts
+        ffn_p = {"router": ((d, e), BF16), "wi_gate": ((e, d, f), BF16),
+                 "wi_up": ((e, d, f), BF16), "wo": ((e, f, d), BF16)}
+    else:
+        ffn_p = {"wi_up": ((d, f), BF16), "wo": ((f, d), BF16)}
+        if cfg.mlp_gated:
+            ffn_p["wi_gate"] = ((d, f), BF16)
     return {"norm1": ((d,), BF16), "norm2": ((d,), BF16),
             "mixer": {"wq": ((d, nq), BF16), "wk": ((d, nkv), BF16),
                       "wv": ((d, nkv), BF16), "wo": ((nq, d), BF16)},
@@ -117,8 +123,11 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
     ``dt_proj``); norms and ``conv_b`` are zeros; ``A_log`` = log(1..N)
     over every channel, ``D`` = 1 and ``dt_bias`` = -4.6 in fp32. Paths,
     shapes, dtypes and those fixed leaves are the reference's; the random
-    numbers are not. Each fp32 draw is scaled in place, so a leaf costs
-    its fp32 draw and its bf16 copy at most."""
+    numbers are not. A leaf stacked over periods is drawn one period
+    slice at a time, each fp32 draw scaled in place and rounded into the
+    bf16 leaf, so a leaf costs its bf16 tensor and one slice's fp32 draw
+    at most (granite-20b's (52, 6144, 24576) ``ffn/wo`` is 31.4 GB whole
+    in fp32, 0.6 GB a slice)."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
@@ -136,8 +145,11 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
             return torch.ones(shape, dtype=dtype, device=dev)
         if name == "dt_bias":   # softplus^-1(0.01)
             return torch.full(shape, -4.6, dtype=dtype, device=dev)
-        w = torch.randn(shape, generator=gen, dtype=FP32, device=dev)
-        return w.mul_(scales.get(name, 0.02)).to(dtype)
+        w = torch.empty(shape, dtype=dtype, device=dev)
+        for part in (w if path.startswith("periods/") else (w,)):
+            part.copy_(torch.randn(part.shape, generator=gen, dtype=FP32,
+                                   device=dev).mul_(scales.get(name, 0.02)))
+        return w
 
     return _unflatten({p: draw(p, s) for p, s in leaves(param_shapes(cfg))})
 

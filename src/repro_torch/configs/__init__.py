@@ -10,16 +10,17 @@ from repro_torch.models.config import ModelConfig
 _MODULES = {
     "gemma3-1b": "repro_torch.configs.gemma3_1b",
     "falcon-mamba-7b": "repro_torch.configs.falcon_mamba_7b",
+    "granite-3-2b": "repro_torch.configs.granite_3_2b",
+    "chatglm3-6b": "repro_torch.configs.chatglm3_6b",
+    "granite-20b": "repro_torch.configs.granite_20b",
+    "granite-moe-1b-a400m": "repro_torch.configs.granite_moe_1b_a400m",
+    "mixtral-8x7b": "repro_torch.configs.mixtral_8x7b",
 }
 
 _NOT_PORTED = {
-    "granite-3-2b": "Queue 1 item 12 (the other dense decoders)",
-    "chatglm3-6b": "Queue 1 item 12 (the other dense decoders)",
-    "granite-20b": "Queue 1 item 12 (the other dense decoders)",
-    "mixtral-8x7b": "Queue 1 item 6 (MoE)",
-    "granite-moe-1b-a400m": "Queue 1 item 6 (MoE)",
-    "jamba-1.5-large-398b": "Queue 1 item 6 (MoE; its Mamba layers are "
-                            "ported, and it needs more than one card)",
+    "jamba-1.5-large-398b": "Queue 1 item 11 (its Mamba and MoE layers are "
+                            "ported; its (mamba, mlp) and (mamba, moe) "
+                            "layers and 797 GB need a sharded model)",
     "llama-3.2-vision-11b": "Queue 1 item 8 (VLM and encoder-decoder)",
     "seamless-m4t-medium": "Queue 1 item 8 (VLM and encoder-decoder)",
 }

@@ -4,7 +4,9 @@ greedy-decode — port of ``repro.launch.serve``.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-1b \\
         --batch 4 --prompt-len 16 --decode 16
 
-``--arch`` takes every ported config (gemma3-1b, falcon-mamba-7b).
+``--arch`` takes every ported config: gemma3-1b, falcon-mamba-7b,
+granite-3-2b, chatglm3-6b, granite-20b, granite-moe-1b-a400m and
+mixtral-8x7b (``repro_torch.configs.ARCH_IDS``).
 
 It runs on CUDA unless given ``--device cpu``. Prefill and decode are timed
 with CUDA events on the card and with ``time.perf_counter`` on the CPU.

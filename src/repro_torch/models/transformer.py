@@ -4,10 +4,10 @@ layout — port of ``repro/models/transformer.py:139-454``.
 The params and caches keep the reference's layout (layers of whole periods
 stacked along a leading ``n_periods`` axis, the rest unrolled as
 ``remainder/r<i>``); the reference's ``lax.scan`` over periods becomes a
-Python loop over slices of the stacked tensors. Attention + MLP layers and
-attention-free Mamba layers (no FFN) are ported: MoE and cross-attention
-layers and ``encode`` raise ``NotImplementedError``. ``impl`` picks the
-kernels (``kernels/ops.py``)."""
+Python loop over slices of the stacked tensors. Attention layers with an
+MLP or a MoE FFN (``models/moe.py``) and attention-free Mamba layers (no
+FFN) are ported: cross-attention layers and ``encode`` raise
+``NotImplementedError``. ``impl`` picks the kernels (``kernels/ops.py``)."""
 
 from __future__ import annotations
 
@@ -16,19 +16,22 @@ import torch
 from repro_torch.kernels import ops
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import mamba as mamba_lib
-from repro_torch.models.config import (ATTN, ATTN_LOCAL, MAMBA, MLP, NONE,
-                                       ModelConfig)
+from repro_torch.models import moe as moe_lib
+from repro_torch.models.config import (ATTN, ATTN_LOCAL, MAMBA, MLP, MOE,
+                                       NONE, ModelConfig)
 from repro_torch.models.layers import embed_apply, mlp_apply, rms_norm
 
 
-_PORTED = {(ATTN, MLP), (ATTN_LOCAL, MLP), (MAMBA, NONE)}
+_PORTED = {(ATTN, MLP), (ATTN_LOCAL, MLP), (ATTN, MOE), (ATTN_LOCAL, MOE),
+           (MAMBA, NONE)}
 
 
 def _check_ported(mixer: str, ffn: str) -> None:
     if (mixer, ffn) not in _PORTED:
         raise NotImplementedError(
-            f"layer kind ({mixer}, {ffn}) is not ported yet: MoE and "
-            f"cross-attention come with ROADMAP.md Queue 1 items 6 and 8")
+            f"layer kind ({mixer}, {ffn}) is not ported yet: cross-attention "
+            f"comes with ROADMAP.md Queue 1 item 8, Mamba layers with an FFN "
+            f"with item 11")
 
 
 def encode(*args, **kwargs):
@@ -49,9 +52,10 @@ def _kind(cfg: ModelConfig, j: int) -> tuple[str, str]:
 
 def _apply_layer(lp: dict, cfg: ModelConfig, x: torch.Tensor, mixer: str,
                  ffn: str, *, positions: torch.Tensor, cache: dict | None,
-                 impl: str) -> tuple[torch.Tensor, dict]:
-    """One residual layer. Returns (x, state): the prefill K/V or Mamba
-    state when ``cache`` is None, else the decode cache updated in place."""
+                 impl: str) -> tuple[torch.Tensor, dict, torch.Tensor | None]:
+    """One residual layer. Returns (x, state, MoE aux loss): the state is
+    the prefill K/V or Mamba state when ``cache`` is None, else the decode
+    cache updated in place; the aux is None but for MoE layers."""
     _check_ported(mixer, ffn)
     h = rms_norm(x, lp["norm1"], cfg.norm_eps)
     if mixer == MAMBA:
@@ -64,14 +68,17 @@ def _apply_layer(lp: dict, cfg: ModelConfig, x: torch.Tensor, mixer: str,
             for name, leaf in new.items():
                 cache[name].copy_(leaf)
             state = cache
-        return x + o, state
+        return x + o, state, None
     window = cfg.sliding_window if mixer == ATTN_LOCAL else 0
     o, kv = attn_lib.self_attention(
         lp["mixer"], cfg, h, positions=positions, window=window,
         theta=_theta_for(cfg, mixer), cache=cache, impl=impl)
     x = x + o
     h2 = rms_norm(x, lp["norm2"], cfg.norm_eps)
-    return x + mlp_apply(lp["ffn"], h2, cfg.act, impl=impl), kv
+    if ffn == MOE:
+        f, aux = moe_lib.moe_apply(lp["ffn"], cfg, h2, impl=impl)
+        return x + f, kv, aux
+    return x + mlp_apply(lp["ffn"], h2, cfg.act, impl=impl), kv, None
 
 
 def _slots(cfg: ModelConfig):
@@ -110,19 +117,30 @@ def _lm_head(params: dict, cfg: ModelConfig, x: torch.Tensor,
     return logits
 
 
-def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
-            impl: str = "auto") -> torch.Tensor:
-    """Teacher-forced full-sequence pass -> (B, S, padded_vocab) logits.
-    (The reference also returns the MoE aux loss, always 0 for the layer
-    kinds ported here.)"""
+def forward_with_aux(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+                     impl: str = "auto") -> tuple[torch.Tensor, torch.Tensor]:
+    """Teacher-forced full-sequence pass -> ((B, S, padded_vocab) logits,
+    the MoE aux loss summed over layers over max(1, MoE layers)), as the
+    reference's ``forward`` returns them (``transformer.py:200-246``)."""
     B, S = tokens.shape
     x = embed_apply(params["embed"], tokens, cfg.embed_scale, cfg.d_model)
     positions = torch.arange(S, dtype=torch.int32, device=x.device)[None, :]
+    aux = x.new_zeros((), dtype=torch.float32)
     for key, i, mixer, ffn in _slots(cfg):
-        x, _ = _apply_layer(_layer_params(params, key, i), cfg, x, mixer, ffn,
-                            positions=positions, cache=None, impl=impl)
+        x, _, a = _apply_layer(_layer_params(params, key, i), cfg, x, mixer,
+                               ffn, positions=positions, cache=None, impl=impl)
+        if a is not None:
+            aux = aux + a
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return _lm_head(params, cfg, x, impl)
+    n_moe = max(1, sum(1 for _, f in cfg.layer_kinds() if f == MOE))
+    return _lm_head(params, cfg, x, impl), aux / n_moe
+
+
+def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+            impl: str = "auto") -> torch.Tensor:
+    """Teacher-forced full-sequence pass -> (B, S, padded_vocab) logits
+    (``forward_with_aux`` without the aux loss)."""
+    return forward_with_aux(params, cfg, tokens, impl)[0]
 
 
 # ----------------------------------------------------------------- caches
@@ -204,9 +222,9 @@ def prefill_hidden(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     positions = torch.arange(S, dtype=torch.int32, device=x.device)[None, :]
     bufs = {}
     for key, i, mixer, ffn in _slots(cfg):
-        x, state = _apply_layer(_layer_params(params, key, i), cfg, x,
-                                mixer, ffn, positions=positions, cache=None,
-                                impl=impl)
+        x, state, _ = _apply_layer(_layer_params(params, key, i), cfg, x,
+                                   mixer, ffn, positions=positions,
+                                   cache=None, impl=impl)
         bufs[(key, i)] = state if mixer == MAMBA else \
             _kv_to_buffer(state, _buffer_width(cfg, mixer, CL))
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
@@ -235,9 +253,9 @@ def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
     x = embed_apply(params["embed"], token, cfg.embed_scale, cfg.d_model)
     positions = cache["t"][:, None]                            # (B,1)
     for key, i, mixer, ffn in _slots(cfg):
-        x, _ = _apply_layer(_layer_params(params, key, i), cfg, x, mixer,
-                            ffn, positions=positions,
-                            cache=_layer_params(cache, key, i), impl=impl)
+        x, _, _ = _apply_layer(_layer_params(params, key, i), cfg, x, mixer,
+                               ffn, positions=positions,
+                               cache=_layer_params(cache, key, i), impl=impl)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     new_cache = dict(cache, t=cache["t"] + 1)
     return _lm_head(params, cfg, x, impl), new_cache

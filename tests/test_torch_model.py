@@ -1,9 +1,12 @@
-"""The port's dense decoder (repro_torch.models.transformer) and param
-bridge against the JAX package on the reduced gemma3-1b, whose 8 layers
-cover a whole 6-layer period and a 2-layer remainder: forward logits,
-prefill + decode against forward, and the params tree crossing."""
+"""The port's decoder (repro_torch.models.transformer) and param bridge
+against the JAX package on the reduced gemma3-1b, whose 8 layers cover a
+whole 6-layer period and a 2-layer remainder, and on the reduced
+granite-3-2b, chatglm3-6b, granite-20b, granite-moe-1b-a400m and
+mixtral-8x7b: forward logits (and the MoE aux loss), prefill + decode
+against forward, and the params tree crossing."""
 
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -26,6 +29,9 @@ from repro_torch.models import transformer as tm  # noqa: E402
 
 TOL = dict(rtol=2e-2, atol=2e-2)   # bf16 model tolerance (test_arch_smoke)
 B, S = 2, 16
+# the archs ported after gemma3-1b and falcon-mamba-7b's own test modules
+NEW_ARCHS = ("granite-3-2b", "chatglm3-6b", "granite-20b",
+             "granite-moe-1b-a400m", "mixtral-8x7b")
 
 
 @pytest.fixture(scope="module")
@@ -50,7 +56,7 @@ def test_configs_match_reference():
     assert dataclasses.asdict(get_config("gemma3-1b")) == \
         dataclasses.asdict(jget_config("gemma3-1b"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config("mixtral-8x7b")
+        get_config("llama-3.2-vision-11b")
     with pytest.raises(ValueError):
         get_config("no-such-arch")
 
@@ -94,7 +100,7 @@ def test_init_cache_matches_reference_layout():
 
 def test_unported_layer_kinds_raise():
     cfg = dataclasses.replace(get_reduced("gemma3-1b"),
-                              ffn_pattern=("moe",))
+                              layer_pattern=("cross",))
     with pytest.raises(NotImplementedError):
         bridge.param_shapes(cfg)
     with pytest.raises(NotImplementedError):
@@ -131,7 +137,7 @@ def test_bridge_rejects_a_tree_of_another_config(model):
 
 
 @pytest.mark.parametrize("full", [False, True])
-@pytest.mark.parametrize("name", ["gemma3-1b", "falcon-mamba-7b"])
+@pytest.mark.parametrize("name", ["gemma3-1b", "falcon-mamba-7b", *NEW_ARCHS])
 def test_own_init_has_the_reference_paths_shapes_dtypes(name, full):
     """The port's seeded init at the reduced size, and its tree at full
     width (shapes and dtypes only, from jax.eval_shape: no allocation)."""
@@ -153,3 +159,76 @@ def test_own_init_has_the_reference_paths_shapes_dtypes(name, full):
         again = bridge.init_params(cfg, seed=0, device="cpu")
         assert torch.equal(again["embed"], params["embed"])
     assert got == want
+
+
+# ---------------------------------------------- the archs of ROADMAP 12, 6
+
+@functools.lru_cache(maxsize=None)
+def _new_model(arch):
+    """(reference params, their numpy tree, the port's params, tokens) of
+    the reduced ``arch``."""
+    cfg = get_reduced(arch)
+    params_j = jinit_params(jget_reduced(arch), jax.random.PRNGKey(0))
+    tree = jax.tree.map(np.asarray, params_j)
+    params_t = bridge.params_from_numpy(tree, cfg, device="cpu")
+    tokens = np.random.default_rng(1).integers(
+        0, cfg.vocab, size=(B, S)).astype(np.int32)
+    return params_j, tree, params_t, tokens
+
+
+@pytest.mark.parametrize("arch", NEW_ARCHS)
+def test_new_configs_match_reference(arch):
+    assert dataclasses.asdict(get_config(arch)) == \
+        dataclasses.asdict(jget_config(arch))
+    assert dataclasses.asdict(get_reduced(arch)) == \
+        dataclasses.asdict(jget_reduced(arch))
+
+
+@pytest.mark.parametrize("arch", NEW_ARCHS)
+def test_new_arch_params_cross_bit_for_bit(arch):
+    params_j, tree, params_t, _ = _new_model(arch)
+    back = bridge.params_to_numpy(params_t, bf16_dtype=ml_dtypes.bfloat16)
+    want, got = dict(bridge.leaves(tree)), dict(bridge.leaves(back))
+    assert list(got) == list(want)
+    for path, a in want.items():
+        assert got[path].dtype == a.dtype, path
+        np.testing.assert_array_equal(got[path].view(np.uint8),
+                                      a.view(np.uint8), err_msg=path)
+    assert bridge.leaf_sizes(params_t) == tree_leaf_sizes(params_j)
+
+
+@pytest.mark.parametrize("arch", NEW_ARCHS)
+def test_new_arch_forward_matches_reference(arch):
+    """Logits, and the aux loss: the mean over MoE layers of the Switch
+    loss, 0 for the dense archs."""
+    params_j, _, params_t, tokens = _new_model(arch)
+    cfg = get_reduced(arch)
+    want, aux_j = jforward(params_j, jget_reduced(arch), tokens)
+    got, aux = tm.forward_with_aux(params_t, cfg, torch.from_numpy(tokens))
+    assert got.shape == (B, S, cfg.padded_vocab) and got.dtype == torch.bfloat16
+    np.testing.assert_allclose(_np(got), _np(want), **TOL)
+    # fp32 means of router probabilities over hidden states that carry
+    # bf16 differences: 2e-4 apart relative at the reduced configs
+    np.testing.assert_allclose(float(aux), float(aux_j), **TOL)
+    assert (float(aux) > 0) == bool(cfg.n_experts)
+    assert torch.equal(tm.forward(params_t, cfg, torch.from_numpy(tokens)), got)
+
+
+@pytest.mark.parametrize("arch", NEW_ARCHS)
+def test_new_arch_prefill_decode_matches_forward(arch):
+    """As test_prefill_decode_matches_forward, with the MoE capacity raised
+    to 8 so that no token drops (test_arch_smoke.py:86): capacity depends
+    on the tokens of a call, so forward and decode drop different ones."""
+    params_j, _, params_t, tokens = _new_model(arch)
+    cfg = dataclasses.replace(get_reduced(arch), capacity_factor=8.0)
+    jcfg = dataclasses.replace(jget_reduced(arch), capacity_factor=8.0)
+    toks = torch.from_numpy(tokens)
+    full = _np(tm.forward(params_t, cfg, toks))
+    np.testing.assert_allclose(full, _np(jforward(params_j, jcfg, tokens)[0]),
+                               **TOL)
+    pre, cache = tm.prefill(params_t, cfg, toks[:, : S - 2], cache_len=S)
+    np.testing.assert_allclose(_np(pre[:, -1]), full[:, S - 3], **TOL)
+    for t in (S - 2, S - 1):
+        logits, cache = tm.decode_step(params_t, cfg, toks[:, t: t + 1], cache)
+        np.testing.assert_allclose(_np(logits[:, 0]), full[:, t], **TOL)
+    assert cache["t"].tolist() == [S, S]

@@ -1,5 +1,7 @@
 """The port's serving path (repro_torch.launch) against the reference's
-on the reduced gemma3-1b, and the port's isolation from the JAX package.
+on the reduced gemma3-1b and the five decoders ported with it
+(granite-3-2b, chatglm3-6b, granite-20b, granite-moe-1b-a400m,
+mixtral-8x7b), and the port's isolation from the JAX package.
 
 Serve: prefill with ``cache_len`` at its default, so every decode buffer
 is ``prompt_len`` wide (the reference's quirk, which the port keeps), then
@@ -33,6 +35,8 @@ ROOT = os.path.join(os.path.dirname(__file__), "..")
 TOL = dict(rtol=2e-2, atol=2e-2)
 MARGIN = 4e-2   # greedy tokens must agree where the reference's top-2 gap exceeds this
 BATCH, PROMPT, DECODE = 2, 5, 8
+NEW_ARCHS = ("granite-3-2b", "chatglm3-6b", "granite-20b",
+             "granite-moe-1b-a400m", "mixtral-8x7b")
 
 
 def _np(x):
@@ -54,9 +58,9 @@ def test_prompts_match_reference():
                                   want)
 
 
-def test_serve_steps_match_reference_past_prompt_len():
-    jcfg = jget_reduced("gemma3-1b")
-    cfg = get_reduced("gemma3-1b")
+def _serve_steps_match_reference_past_prompt_len(arch):
+    jcfg = jget_reduced(arch)
+    cfg = get_reduced(arch)
     params_j = jinit_params(jcfg, jax.random.PRNGKey(0))
     params_t = bridge.params_from_numpy(jax.tree.map(np.asarray, params_j),
                                         cfg, device="cpu")
@@ -94,9 +98,26 @@ def test_serve_steps_match_reference_past_prompt_len():
     assert ct["t"].tolist() == [PROMPT + DECODE] * BATCH
 
 
+def test_serve_steps_match_reference_past_prompt_len():
+    _serve_steps_match_reference_past_prompt_len("gemma3-1b")
+
+
+@pytest.mark.parametrize("arch", NEW_ARCHS)
+def test_new_arch_serve_steps_match_reference_past_prompt_len(arch):
+    _serve_steps_match_reference_past_prompt_len(arch)
+
+
 def test_main_runs_on_cpu(capsys):
     serve.main(["--reduced", "--device", "cpu", "--batch", "2",
                 "--prompt-len", "4", "--decode", "3"])
+    out = capsys.readouterr().out
+    assert "decoded 3 tokens" in out and "on cpu" in out
+
+
+@pytest.mark.parametrize("arch", NEW_ARCHS)
+def test_main_runs_every_new_arch_on_cpu(arch, capsys):
+    serve.main(["--arch", arch, "--reduced", "--device", "cpu", "--batch",
+                "2", "--prompt-len", "4", "--decode", "3"])
     out = capsys.readouterr().out
     assert "decoded 3 tokens" in out and "on cpu" in out
 
@@ -117,7 +138,9 @@ def test_entry_points_raise_without_cuda(monkeypatch):
 def test_port_imports_no_jax_and_nothing_of_repro():
     code = ("import sys, repro_torch.launch.serve, repro_torch.bridge, "
             "repro_torch.core, repro_torch.configs.paper_workloads, "
-            "repro_torch.kernels.ops\n"
+            "repro_torch.kernels.ops, repro_torch.models.moe\n"
+            "from repro_torch.configs import ARCH_IDS, get_config\n"
+            "[get_config(a) for a in ARCH_IDS]\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro', 'ml_dtypes'))\n"
             "assert not bad, bad\n")

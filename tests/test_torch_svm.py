@@ -394,7 +394,9 @@ def test_executor_defaults_to_the_h100_preset():
 @pytest.mark.parametrize("arch,frac", [("gemma3-1b", 0.15),
                                        ("gemma3-1b", 0.6),
                                        ("falcon-mamba-7b", 0.4),
-                                       ("falcon-mamba-7b", 0.6)])
+                                       ("falcon-mamba-7b", 0.6),
+                                       ("granite-3-2b", 0.6),
+                                       ("granite-moe-1b-a400m", 0.6)])
 def test_weight_stream_report_equals_reference(arch, frac, mode):
     ref, port = _streams(arch, mode, "lrf", frac=frac)
     assert port.layer_paths == ref.layer_paths
@@ -405,6 +407,7 @@ def test_weight_stream_report_equals_reference(arch, frac, mode):
     ref.step()
     port.step()
     assert port.report(STEPS + 1) == ref.report(STEPS + 1)
+    assert port.executor.metrics() == ref.executor.metrics()
     assert port.executor._zc_leaves == ref.executor._zc_leaves
     assert sorted(port.executor.mgr.pinned) == sorted(ref.executor.mgr.pinned)
 
