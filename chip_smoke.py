@@ -104,6 +104,25 @@
    layers replay the CPU's routing: ``RouteTape``). granite-moe also runs
    the SVM phase and the launcher with ``--svm-budget-frac 0.6
    --svm-mode svm_aware --requests 8``.
+   Then the VLM and the encoder-decoder (``CTX_ARCHS``:
+   llama-3.2-vision-11b, seamless-m4t-medium), whole at full width, each
+   serving the launcher's context (``serve.context``: stub image patches,
+   or frames that seamless encodes again in every decode token): flash
+   attention at their shapes (non-causal, S != T, T = 6 404, S = 1 on the
+   wgmma route, and the reduced VLM's cross-attention on mma_sync), the
+   matmul kernel at every shape of their prefill and decode token
+   (``context_matmuls``: the context's K/V at M = 25 616, seamless's tied
+   head at N = 256 256), then their serve phases: the launches by kernel
+   and route of a prefill and of every token exactly as ``CTX_COUNTS``,
+   2 prefill repeats, the device profile for the VLM only,
+   ``compare_paths`` on whole periods (``CTX_PATHS_LAYERS``; seamless's
+   whole encoder in the path) on a copy of the params with every
+   cross-attention gate at PATHS_GATE (init leaves them at 0, which makes
+   cross-attention a no-op), after a check that the gates move the
+   logits beyond MODEL_TOL, and the reduced config against the CPU with
+   the gates at REDUCED_GATE; seamless also runs the SVM phase and the
+   launcher with ``--svm-budget-frac 0.6 --svm-mode svm_aware
+   --requests 8``.
 8. The paper's Category-I and Category-II workloads: holds the STREAM
    triad and Jacobi-2d kernels against their plain versions bit for bit
    (fp32 triad: at most 1 ulp, the count printed) at (32768, 32768) in
@@ -202,6 +221,8 @@ LAUNCHER_RUNS = {
                                           admit_by="measured", chaos=False)),
     "granite-moe-1b-a400m": ("svm_aware", dict(policy="svm_aware",
                                                admit_by="bytes", chaos=False)),
+    "seamless-m4t-medium": ("svm_aware", dict(policy="svm_aware",
+                                              admit_by="bytes", chaos=False)),
 }
 # the decoders ported after the first two, served in this order by lighter
 # phases: NEW_PREFILL_REPEATS repeats, the device profile only for
@@ -216,6 +237,37 @@ NEW_PROFILED = (MOE_ARCH, "granite-20b")
 NEW_PREFILL_REPEATS = 2
 PATHS_LAYERS = 4
 DEPTH_CUT = {"mixtral-8x7b": 8}
+# the VLM and the encoder-decoder, served whole at full width by lighter
+# phases (NEW_PREFILL_REPEATS repeats); the device profile for the VLM
+# only, the SVM phase and a launcher run for the encoder-decoder only.
+# compare_paths cuts whole periods: the VLM's first (5 layers, its first
+# cross layer l3), the encoder-decoder's first two (4 layers) with its
+# whole encoder
+VLM_ARCH, ENCDEC_ARCH = "llama-3.2-vision-11b", "seamless-m4t-medium"
+CTX_ARCHS = (VLM_ARCH, ENCDEC_ARCH)
+CTX_PATHS_LAYERS = {VLM_ARCH: 5, ENCDEC_ARCH: 4}
+# every cross-attention gate is 0 at init, which makes its layer a no-op:
+# compare_paths runs a copy of the served params with the gates at
+# PATHS_GATE, the reduced configs run with REDUCED_GATE
+PATHS_GATE = 1.0
+REDUCED_GATE = 0.5
+# launches of a prefill and of one decode token by kernel and route, read
+# off the model code: the VLM's 40 layers (32 self-attention, 8
+# cross-attention) of 7 matmuls each and the LM head; in a token the 8
+# cross layers project the context (4 x 6404 rows) on wgmma and attend at
+# S = 1. seamless's 12 encoder layers of 7, 12 (attn, none) of 4 and 12
+# (cross, mlp) of 7, and the head; a token encodes the frames again and
+# projects them in the 12 cross layers (wgmma), and attends 12 + 12 times
+CTX_COUNTS = {
+    VLM_ARCH: dict(prefill=dict(matmul={"wgmma": 280, "decode": 1},
+                                flash_attention={"wgmma": 40}),
+                   token=dict(matmul={"wgmma": 16, "decode": 265},
+                              flash_attention={"wgmma": 8})),
+    ENCDEC_ARCH: dict(prefill=dict(matmul={"wgmma": 216, "decode": 1},
+                                   flash_attention={"wgmma": 36}),
+                      token=dict(matmul={"wgmma": 108, "decode": 109},
+                                 flash_attention={"wgmma": 24})),
+}
 
 
 def smi() -> str:
@@ -786,6 +838,9 @@ def flash_case(B, H, KV, S, T, D, causal, window, tag, want_route,
     if causal and not window and S == T:
         lib = time_ms(lambda: F.scaled_dot_product_attention(
             qc, kr, vr, is_causal=True, scale=scale), [()])
+    elif not causal and not window:
+        lib = time_ms(lambda: F.scaled_dot_product_attention(
+            qc, kr, vr, scale=scale), [()])
     else:
         lib = time_ms(lambda: F.scaled_dot_product_attention(
             qc, kr, vr, attn_mask=mask, scale=scale), [()])
@@ -965,7 +1020,9 @@ def serve_phase(cfg, repeats: int = PREFILL_REPEATS, profile: bool = True,
     """Serve ``cfg`` at full width (see the module docstring). The lighter
     phases of the later archs pass fewer prefill ``repeats``, skip the
     device profile or the SVM phase, and run ``compare_paths`` on the
-    first ``paths_layers`` layers of the served params."""
+    first ``paths_layers`` layers of the served params. A VLM or an
+    encoder-decoder takes the launcher's context (``serve.context``), and
+    its launches are checked against CTX_COUNTS."""
     from repro_torch.bridge import init_params, leaf_sizes, leaves
     from repro_torch.launch import serve
 
@@ -974,6 +1031,7 @@ def serve_phase(cfg, repeats: int = PREFILL_REPEATS, profile: bool = True,
     torch.cuda.reset_peak_memory_stats()
     params = init_params(cfg, seed=0, device="cuda")
     toks = serve.prompts(cfg, BATCH, PROMPT, "cuda")
+    ctx = serve.context(cfg, BATCH, "cuda")
     torch.cuda.synchronize()
     weight_bytes = sum(n for _, n in leaf_sizes(params))
     init_peak = torch.cuda.max_memory_allocated()
@@ -983,29 +1041,39 @@ def serve_phase(cfg, repeats: int = PREFILL_REPEATS, profile: bool = True,
     print(f"serve {cfg.name}: {cfg.n_layers} layers, peak memory after init "
           f"{init_peak / 1e9:.3f} GB", flush=True)
     with torch.inference_mode():
-        tok, _, cache, _ = serve.run_prefill(cfg, params, toks[:, :128])  # warm-up
-        serve.run_decode(cfg, params, tok, cache, 2)
+        tok, _, cache, _ = serve.run_prefill(cfg, params, toks[:, :128],
+                                             ctx)  # warm-up
+        serve.run_decode(cfg, params, tok, cache, 2, ctx)
         del cache
         kmm = mods["matmul"]
         for m in mods.values():
             m.launches = 0
             if hasattr(m, "route_launches"):
                 m.route_launches.update(dict.fromkeys(m.ROUTES, 0))
-        tok, logits, cache, pre_ms = serve.run_prefill(cfg, params, toks)
+        tok, logits, cache, pre_ms = serve.run_prefill(cfg, params, toks, ctx)
         pre_counts = {k: m.launches for k, m in mods.items()}
         pre_routes = dict(kmm.route_launches)
         fa_routes = (dict(mods["flash_attention"].route_launches)
                      if "flash_attention" in mods else None)
-        decoded, cache, dec_ms = serve.run_decode(cfg, params, tok, cache, DECODE)
+        decoded, cache, dec_ms = serve.run_decode(cfg, params, tok, cache,
+                                                  DECODE, ctx)
         counts = {k: m.launches for k, m in mods.items()}
         routes = {r: n - pre_routes[r] for r, n in kmm.route_launches.items()}
-        check_routes(cfg, pre_routes, routes, fa_routes)
+        fa_dec = (None if fa_routes is None else
+                  {r: n - fa_routes[r] for r, n in
+                   mods["flash_attention"].route_launches.items()})
+        if ctx is None:
+            check_routes(cfg, pre_routes, routes, fa_routes)
+        else:
+            check_context_counts(cfg, dict(matmul=pre_routes,
+                                           flash_attention=fa_routes),
+                                 dict(matmul=routes, flash_attention=fa_dec))
         if "mamba_scan" in mods:
             check_scan_launches(cfg, pre_counts["mamba_scan"],
                                 counts["mamba_scan"])
         # the first full-size prefill grows the allocator's pool; repeats
         # show the steady state, and how far the host's dispatch spreads
-        pre_ms_again = [serve.run_prefill(cfg, params, toks)[3]
+        pre_ms_again = [serve.run_prefill(cfg, params, toks, ctx)[3]
                         for _ in range(repeats)]
         seq = torch.cat([tok] + decoded, dim=1)
         assert logits.shape == (BATCH, 1, cfg.padded_vocab), logits.shape
@@ -1026,7 +1094,8 @@ def serve_phase(cfg, repeats: int = PREFILL_REPEATS, profile: bool = True,
         print(f"serve {cfg.name}: matmul routes, prefill {pre_routes}; "
               f"decode {routes}"
               + ("" if fa_routes is None else
-                 f"; flash_attention routes, prefill {fa_routes}"), flush=True)
+                 f"; flash_attention routes, prefill {fa_routes}")
+              + ("" if ctx is None else f", decode {fa_dec}"), flush=True)
         print(f"serve {cfg.name}: first request continuation:",
               seq[0].tolist(), flush=True)
 
@@ -1034,9 +1103,10 @@ def serve_phase(cfg, repeats: int = PREFILL_REPEATS, profile: bool = True,
         prof_pre = prof_dec = None
         if profile:
             prof_pre = profile_device(
-                lambda: serve.run_prefill(cfg, params, toks))
+                lambda: serve.run_prefill(cfg, params, toks, ctx))
             prof_dec = profile_device(
-                lambda: serve.run_decode(cfg, params, seq[:, -1:], cache, 4))
+                lambda: serve.run_decode(cfg, params, seq[:, -1:], cache, 4,
+                                         ctx))
             for phase, (busy, wall, top), eager in (
                     ("prefill", prof_pre, pre_ms), ("decode x4", prof_dec,
                                                     4 * dec_ms / DECODE)):
@@ -1050,13 +1120,25 @@ def serve_phase(cfg, repeats: int = PREFILL_REPEATS, profile: bool = True,
 
         spec = served_spec(cfg, params)
         check_params_unchanged(cfg.name, params, sums, "while serving")
+        gate_live = None
         if paths_layers is None:
             paths = compare_paths(cfg, params, toks)
-        else:
+        elif ctx is None:
             print(f"paths {cfg.name}: compare_paths on the first "
                   f"{paths_layers} of {cfg.n_layers} layers (full width; the "
                   f"fp32 copy of all of them would not fit)", flush=True)
             paths = compare_paths(*depth_cut(cfg, params, paths_layers), toks)
+        else:
+            cut_cfg, cut = depth_cut(cfg, params, paths_layers)
+            gate_live = check_gate_live(cut_cfg, cut, toks, ctx)
+            print(f"paths {cfg.name}: compare_paths on the first "
+                  f"{paths_layers} of {cfg.n_layers} layers (whole periods, "
+                  f"full width"
+                  + (", the whole encoder" if cfg.is_encdec else "")
+                  + f"), every cross-attention gate at {PATHS_GATE} on a "
+                  f"copy", flush=True)
+            paths = compare_paths(cut_cfg, with_gates(cut, PATHS_GATE), toks,
+                                  ctx=ctx)
         check_params_unchanged(cfg.name, params, sums, "in compare_paths")
         pre_ms_p = paths.pop("plain_prefill_ms")
         peak = torch.cuda.max_memory_allocated()
@@ -1072,7 +1154,8 @@ def serve_phase(cfg, repeats: int = PREFILL_REPEATS, profile: bool = True,
                 spec=spec, svm=svm, prefill_ms=pre_ms,
                 prefill_ms_repeated=pre_ms_again,
                 matmul_routes_prefill=pre_routes, matmul_routes_decode=routes,
-                flash_routes_prefill=fa_routes,
+                flash_routes_prefill=fa_routes, flash_routes_decode=fa_dec,
+                gate_live=gate_live,
                 decode_ms=dec_ms, tok_s=tok_s,
                 decode_ms_per_token=dec_ms / DECODE,
                 decode_weight_bound_ms_per_token=weight_bytes / HBM_BYTES_S * 1e3,
@@ -1171,6 +1254,183 @@ def new_archs_phase(t_run: float) -> dict:
               flush=True)
     return dict(flash=flash, matmul_moe=mm_moe, matmul_moe_phases=phases_moe,
                 matmul_granite_20b=mm_20b, matmul_granite_20b_phases=phases_20b,
+                served=served, launcher=launched)
+
+
+# ------------------------------------------- VLM and encoder-decoder
+
+def with_gates(params, value: float) -> dict:
+    """A copy of ``params`` with every cross-attention ``gate`` leaf at
+    ``value``; the other leaves are the same tensors."""
+    return {k: with_gates(v, value) if isinstance(v, dict)
+            else torch.full_like(v, value) if k == "gate" else v
+            for k, v in params.items()}
+
+
+def check_gate_live(cfg, params, toks, ctx) -> float:
+    """The kernel path's prefill logits with the served gates (0, as init
+    leaves them) and with every gate at PATHS_GATE must differ beyond
+    MODEL_TOL: with the gates at 0 neither the cross layers nor the
+    encoder reach the output. Returns max |diff|."""
+    from repro_torch.bridge import leaves
+    from repro_torch.launch import serve
+
+    gates = [x for p, x in leaves(params) if p.endswith("/gate")]
+    if not gates or any(bool(g.any()) for g in gates):
+        raise AssertionError(f"{cfg.name}: served gates {gates} are not the "
+                             f"zeros of init")
+    off, on = (serve.run_prefill(cfg, p, toks, ctx)[1][:, -1, :cfg.vocab]
+               for p in (params, with_gates(params, PATHS_GATE)))
+    diff = (on.float() - off.float()).abs().max().item()
+    if within(on, off, MODEL_TOL):
+        raise AssertionError(f"{cfg.name}: prefill logits with the gates at "
+                             f"{PATHS_GATE} and at 0 are within {MODEL_TOL}")
+    print(f"paths {cfg.name}: the gates are live: kernel-path prefill logits "
+          f"with the gates at {PATHS_GATE} are {diff:.3e} from those at 0 "
+          f"(beyond {MODEL_TOL})", flush=True)
+    return diff
+
+
+def check_context_counts(cfg, prefill: dict, decode: dict) -> None:
+    """Launches of a prefill and of DECODE tokens by kernel and route
+    ({kernel: {route: n}}) against CTX_COUNTS."""
+    want = CTX_COUNTS[cfg.name]
+    for phase, got, per, n in (("prefill", prefill, "prefill", 1),
+                               ("decode", decode, "token", DECODE)):
+        for kernel, routes in got.items():
+            exp = dict.fromkeys(routes, 0) | {
+                r: c * n for r, c in want[per][kernel].items()}
+            if routes != exp:
+                raise AssertionError(f"{cfg.name}: {kernel} routes {phase} "
+                                     f"{routes}, expected {exp}")
+
+
+def context_matmuls(cfg) -> dict:
+    """{phase: {(M, K, N, b_transposed): [tags, calls]}} of every matmul of
+    a prefill and of one decode token of a VLM or encoder-decoder ``cfg``,
+    read off the model code: each layer's q and output projections, its K
+    and V over the layer's own rows or, in a cross-attention layer, over
+    the context's (at decode too), its MLP unless the FFN is none; an
+    encoder-decoder's encoder over its frames (in every token too); the LM
+    head on the last position."""
+    d, f, hd = cfg.d_model, cfg.d_ff, cfg.resolved_head_dim
+    nq, nkv = cfg.n_heads * hd, cfg.n_kv_heads * hd
+    mlp = ([("wi_gate,wi_up", d, f, 2)] if cfg.mlp_gated
+           else [("wi_up", d, f, 1)]) + [("mlp wo", f, d, 1)]
+    ctx_rows = BATCH * (cfg.image_tokens or cfg.encoder_frames)
+    layers = [(mixer, ffn, "") for mixer, ffn in cfg.layer_kinds()]
+    layers += [("attn", "mlp", "enc ")] * cfg.encoder_layers
+    out = {}
+    for phase, M in (("prefill", BATCH * PROMPT), ("decode", BATCH)):
+        calls: dict = {}
+
+        def add(tag, m, k, n, c, bt=False):
+            row = calls.setdefault((m, k, n, bt), [[], 0])
+            if tag not in row[0]:
+                row[0].append(tag)
+            row[1] += c
+
+        for mixer, ffn, enc in layers:
+            m = BATCH * cfg.encoder_frames if enc else M
+            add(enc + "wq", m, d, nq, 1)
+            add(enc + "attn wo", m, nq, d, 1)
+            if mixer == "cross":
+                add("ctx wk,wv", ctx_rows, d, nkv, 2)
+            else:
+                add(enc + "wk,wv", m, d, nkv, 2)
+            if ffn != "none":
+                for tag, k, n, c in mlp:
+                    add(enc + tag, m, k, n, c)
+        add("lm head", BATCH, d, cfg.padded_vocab, 1, cfg.tie_embeddings)
+        out[phase] = calls
+    return out
+
+
+def _mm_route(M: int) -> str:
+    return "wgmma" if M >= 64 else "decode"
+
+
+def context_matmul_phase(cfg):
+    """``matmul_case`` once for every shape of ``context_matmuls(cfg)``,
+    weighted by its calls in a prefill and in a decode token; the counts
+    by route must be CTX_COUNTS'."""
+    calls = context_matmuls(cfg)
+    for phase, per in (("prefill", "prefill"), ("decode", "token")):
+        by_route: dict = {}
+        for (M, *_), (_, n) in calls[phase].items():
+            by_route[_mm_route(M)] = by_route.get(_mm_route(M), 0) + n
+        if by_route != CTX_COUNTS[cfg.name][per]["matmul"]:
+            raise AssertionError(f"{cfg.name}: the {phase} walk gives "
+                                 f"{by_route}, CTX_COUNTS says "
+                                 f"{CTX_COUNTS[cfg.name][per]['matmul']}")
+    cases, rows, phases = {}, [], {"prefill": [], "decode": []}
+    for phase in phases:
+        for (M, K, N, bt), (tags, n) in calls[phase].items():
+            if (M, K, N, bt) not in cases:
+                cases[(M, K, N, bt)] = matmul_case(
+                    M, K, N, bt, torch.bfloat16, ",".join(tags), _mm_route(M))
+                rows.append(cases[(M, K, N, bt)])
+            phases[phase].append((cases[(M, K, N, bt)], n))
+    return rows, phases
+
+
+def context_flash_phase(vlm, s2t) -> dict:
+    """Flash attention at the shapes the VLM and the encoder-decoder give
+    it, in the model's layout: the VLM's self-attention (causal) and
+    cross-attention over its 6 404 image tokens at prefill and at decode
+    (S = 1), the encoder's bidirectional attention (the same shape as the
+    encoder-decoder's cross-attention at prefill), its causal
+    self-attention and its cross-attention at decode; and the reduced
+    VLM's cross-attention on the mma_sync route."""
+    from repro_torch.configs import get_reduced
+
+    def case(cfg, S, T, causal, tag, route="wgmma", batch=BATCH):
+        return flash_case(batch, cfg.n_heads, cfg.n_kv_heads, S, T,
+                          cfg.resolved_head_dim, causal, 0, tag, route,
+                          model_layout=True)
+    small = get_reduced(VLM_ARCH)
+    return {
+        "vlm-self": case(vlm, PROMPT, PROMPT, True, "vlm self"),
+        "vlm-cross": case(vlm, PROMPT, vlm.image_tokens, False, "vlm cross"),
+        "vlm-cross-decode": case(vlm, 1, vlm.image_tokens, False,
+                                 "vlm x dec"),
+        "encoder": case(s2t, s2t.encoder_frames, s2t.encoder_frames, False,
+                        "encoder"),
+        "encdec-self": case(s2t, PROMPT, PROMPT, True, "s2t self"),
+        "encdec-cross-decode": case(s2t, 1, s2t.encoder_frames, False,
+                                    "s2t x dec"),
+        "reduced-vlm": case(small, 16, small.image_tokens, False,
+                            "reduced vlm", "mma_sync", batch=2)}
+
+
+def context_archs_phase(t_run: float) -> dict:
+    """The VLM and the encoder-decoder (CTX_ARCHS) at full width, whole:
+    flash attention and the matmul kernel at their shapes, then each
+    arch's lighter serve phase with its context, the launch and route
+    counts of CTX_COUNTS, ``compare_paths`` on whole periods with the
+    gates at PATHS_GATE, the reduced config against the CPU; and the
+    encoder-decoder's SVM phase and launcher run."""
+    from repro_torch.configs import get_config
+
+    cfgs = {n: get_config(n) for n in CTX_ARCHS}
+    flash = context_flash_phase(cfgs[VLM_ARCH], cfgs[ENCDEC_ARCH])
+    matmul = {n: context_matmul_phase(cfg) for n, cfg in cfgs.items()}
+    free_memory()
+    served, launched = {}, None
+    for name, cfg in cfgs.items():
+        served[name] = serve_phase(
+            cfg, repeats=NEW_PREFILL_REPEATS, profile=name == VLM_ARCH,
+            svm=name == ENCDEC_ARCH, paths_layers=CTX_PATHS_LAYERS[name])
+        spec = served[name].pop("spec")
+        free_memory()
+        if name in LAUNCHER_RUNS:
+            launched = launcher_phase(
+                name, served[name]["svm"]["modes"]["svm_aware"]["report"], spec)
+            free_memory()
+        print(f"{name} phases done at {time.perf_counter() - t_run:.1f} s",
+              flush=True)
+    return dict(flash=flash, matmul={n: rows for n, (rows, _) in matmul.items()},
+                matmul_phases={n: ph for n, (_, ph) in matmul.items()},
                 served=served, launcher=launched)
 
 
@@ -1571,7 +1831,7 @@ def rel_l2(a, b) -> float:
     return ((a - b).norm() / b.norm()).item()
 
 
-def compare_paths(cfg, params, toks, steps: int = 4) -> dict:
+def compare_paths(cfg, params, toks, steps: int = 4, ctx=None) -> dict:
     """Full width: the kernel path (impl="auto") and the plain path
     (impl="torch"), both bf16, against the same model run in fp32 on the
     plain path. Prefill's last-position logits, then ``steps`` decode
@@ -1586,12 +1846,16 @@ def compare_paths(cfg, params, toks, steps: int = 4) -> dict:
     exceeds MARGIN. MoE layers: both bf16 paths replay the fp32 path's
     routing (``RouteTape``), the kernel path's router logits must be no
     farther from fp32's than PATH_RATIO x the plain path's, and the tokens
-    whose own choices differ from fp32's are counted."""
+    whose own choices differ from fp32's are counted. A modality context
+    ``ctx`` goes to every path (to the fp32 path in fp32), encoded again in
+    every step for an encoder-decoder, as the launcher does."""
     from repro_torch.bridge import tree_map
 
     params32 = tree_map(lambda x: x.float(), params)   # 4 bytes a weight
     setups = {"fp32": (params32, "torch"), "plain": (params, "torch"),
               "kernel": (params, "auto")}
+    ctxs = {"fp32": None if ctx is None else ctx.float(), "plain": ctx,
+            "kernel": ctx}
     tape = RouteTape() if cfg.n_experts else None
 
     def play(name):
@@ -1599,17 +1863,19 @@ def compare_paths(cfg, params, toks, steps: int = 4) -> dict:
             tape.play(None if name == "fp32" else name)
 
     with tape or contextlib.nullcontext():
-        return _compare_paths(cfg, toks, steps, setups, play, tape)
+        return _compare_paths(cfg, toks, steps, setups, ctxs, play, tape)
 
 
-def _compare_paths(cfg, toks, steps, setups, play, tape) -> dict:
+def _compare_paths(cfg, toks, steps, setups, ctxs, play, tape) -> dict:
     from repro_torch.launch import serve
+    from repro_torch.launch.steps import model_context
     from repro_torch.models import transformer as tm
 
     logits, caches, out = {}, {}, {"steps": []}
     for name, (p, impl) in setups.items():
         play(name)
-        _, lg, caches[name], ms = serve.run_prefill(cfg, p, toks, impl=impl)
+        _, lg, caches[name], ms = serve.run_prefill(cfg, p, toks, ctxs[name],
+                                                    impl=impl)
         logits[name] = lg[:, -1, :cfg.vocab]   # without the masked padding
         if name == "plain":
             out["plain_prefill_ms"] = ms
@@ -1617,8 +1883,9 @@ def _compare_paths(cfg, toks, steps, setups, play, tape) -> dict:
         if step:
             for name, (p, impl) in setups.items():
                 play(name)
-                lg, caches[name] = tm.decode_step(p, cfg, tok, caches[name],
-                                                  impl=impl)
+                lg, caches[name] = tm.decode_step(
+                    p, cfg, tok, caches[name],
+                    model_context(p, cfg, ctxs[name], impl), impl=impl)
                 logits[name] = lg[:, -1, :cfg.vocab]
         ref = logits["fp32"].float()
         top2 = ref.topk(2, dim=-1).values
@@ -1747,10 +2014,14 @@ def reduced_vs_cpu(name: str) -> dict:
     within MODEL_TOL. Mamba mixers get the LOUD_MODEL gains: at their init
     they leave the logits unchanged within any tolerance. MoE layers
     replay the CPU's routing (``RouteTape``); the error of the card's own
-    routing is printed beside it."""
+    routing is printed beside it. A VLM or an encoder-decoder takes the
+    launcher's context, its cross-attention gates at REDUCED_GATE, and its
+    prefill logits on the card with the gates at 0 must differ from them
+    beyond MODEL_TOL."""
     from repro_torch.bridge import init_params, tree_map
     from repro_torch.configs import get_reduced
     from repro_torch.launch import serve
+    from repro_torch.launch.steps import model_context
     from repro_torch.models import transformer as tm
 
     cfg = get_reduced(name)
@@ -1760,17 +2031,22 @@ def reduced_vs_cpu(name: str) -> dict:
         for leaf, gain in LOUD_MODEL.items():
             mixer[leaf].mul_(gain)
         mixer["dt_bias"].zero_()
+    ctx = serve.context(cfg, 2, "cpu")
+    if ctx is not None:
+        p_cpu = with_gates(p_cpu, REDUCED_GATE)
     p_gpu = tree_map(lambda x: x.to("cuda"), p_cpu)
     toks = serve.prompts(cfg, 2, 24, "cpu")
 
     def run(params, device, fed=None):
         """Prefill logits and 8 decode steps' logits; decode is fed
         ``fed`` (the CPU's greedy tokens), or its own greedy tokens."""
-        tok, lg, cache, _ = serve.run_prefill(cfg, params, toks.to(device))
+        c = None if ctx is None else ctx.to(device)
+        tok, lg, cache, _ = serve.run_prefill(cfg, params, toks.to(device), c)
         logits, own = [lg.cpu()], [tok.cpu()]
         for i in range(8):
             tok = (fed[i] if fed else own[-1]).to(device)
-            lg, cache = tm.decode_step(params, cfg, tok, cache)
+            lg, cache = tm.decode_step(params, cfg, tok, cache,
+                                       model_context(params, cfg, c))
             logits.append(lg.cpu())
             own.append(lg[:, -1].argmax(dim=-1).int()[:, None].cpu())
         return logits, own
@@ -1789,6 +2065,16 @@ def reduced_vs_cpu(name: str) -> dict:
     line = (f"reduced {name}, card kernels vs CPU plain: max |err| prefill "
             f"{errs[0]:.3e}, 8 decode steps {max(errs[1:]):.3e} "
             f"(tolerance {MODEL_TOL})")
+    if ctx is not None:
+        off = run(with_gates(p_gpu, 0.0), "cuda", fed)[0][0]
+        if within(got[0], off, MODEL_TOL):
+            raise AssertionError(f"reduced {name}: the prefill logits with "
+                                 f"the gates at {REDUCED_GATE} and at 0 are "
+                                 f"within {MODEL_TOL}")
+        out["gate_live_max_abs_diff"] = (got[0].float()
+                                         - off.float()).abs().max().item()
+        line += (f"; gates at {REDUCED_GATE}, their prefill logits "
+                 f"{out['gate_live_max_abs_diff']:.3e} from the gates at 0")
     if tape:
         own, _ = run(p_gpu, "cuda", fed)          # the card's own routing
         st = tape.stats["card"]
@@ -1896,6 +2182,9 @@ def main() -> int:
     new = new_archs_phase(t_run)
     launched.append(new.pop("launcher"))
     free_memory()
+    ctxp = context_archs_phase(t_run)
+    launched.append(ctxp.pop("launcher"))
+    free_memory()
     work, weighted = workloads_phase()   # last: the serving phases run as before it
     free_memory()
     print(f"paper workloads phase done at {time.perf_counter() - t_run:.1f} s",
@@ -1955,6 +2244,27 @@ def main() -> int:
         summarize("matmul@granite-20b-decode", g20_phases["decode"],
                   split(s20, "matmul")[0], mm_src, mm_rep),
     ]
+    svlm, s2t = (ctxp["served"][n] for n in CTX_ARCHS)
+    ctx_mm = ctxp.pop("matmul_phases")   # (row, calls): not for the json
+    cf = ctxp["flash"]
+    for tag, srv, mm, fa_pre, fa_dec in (
+            ("vlm", svlm, ctx_mm[VLM_ARCH],
+             [(cf["vlm-self"], 32), (cf["vlm-cross"], 8)],
+             [(cf["vlm-cross-decode"], 8)]),
+            ("encdec", s2t, ctx_mm[ENCDEC_ARCH],
+             [(cf["encoder"], 24), (cf["encdec-self"], 12)],
+             [(cf["encoder"], 12), (cf["encdec-cross-decode"], 12)])):
+        mm_d, mm_p = split(srv, "matmul")
+        fa_d, fa_p = split(srv, "flash_attention")
+        kernels += [
+            summarize(f"matmul@{tag}-prefill", mm["prefill"], mm_p, mm_src,
+                      mm_rep),
+            summarize(f"matmul@{tag}-decode", mm["decode"], mm_d, mm_src,
+                      mm_rep),
+            summarize(f"flash_attention@{tag}-prefill", fa_pre, fa_p, fa_src,
+                      fa_rep),
+            summarize(f"flash_attention@{tag}-decode", fa_dec, fa_d, fa_src,
+                      fa_rep)]
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(dict(card=card, torch=torch.__version__, matmul=mm_rows,
@@ -1963,6 +2273,7 @@ def main() -> int:
                        serve_mamba=served_m, paper_workloads=work,
                        kernels=kernels, link_bw=link, serving_rate=rates,
                        launcher=launched, sched=sched, new_archs=new,
+                       context_archs=ctxp,
                        seconds=time.perf_counter() - t_run), f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(smi())

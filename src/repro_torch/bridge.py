@@ -19,8 +19,9 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.models.config import (ATTN, ATTN_LOCAL, MAMBA, MLP, MOE,
-                                      NONE, ModelConfig)
+from repro_torch.models.config import (ATTN, CROSS, MAMBA, MLP, MOE, NONE,
+                                      ModelConfig)
+from repro_torch.models.transformer import check_ported
 
 Shape = tuple[int, ...]
 BF16, FP32 = torch.bfloat16, torch.float32
@@ -37,30 +38,40 @@ def _mamba_shapes(cfg: ModelConfig) -> dict:
             "D": ((di,), FP32), "out_proj": ((di, d), BF16)}
 
 
-def _layer_shapes(cfg: ModelConfig, mixer: str, ffn: str) -> dict:
-    d = cfg.d_model
-    if mixer == MAMBA and ffn == NONE:
-        return {"norm1": ((d,), BF16), "mixer": _mamba_shapes(cfg)}
-    if mixer not in (ATTN, ATTN_LOCAL) or ffn not in (MLP, MOE):
-        raise NotImplementedError(
-            f"layer kind ({mixer}, {ffn}) is not ported yet: only attention "
-            f"+ MLP or MoE and Mamba layers (cross-attention comes with "
-            f"ROADMAP.md Queue 1 item 8, Mamba layers with an FFN with item "
-            f"11)")
-    hd, f = cfg.resolved_head_dim, cfg.d_ff
+def _attn_shapes(cfg: ModelConfig) -> dict:
+    """``attn_init``'s leaves (``repro/models/attention.py:19-28``)."""
+    d, hd = cfg.d_model, cfg.resolved_head_dim
     nq, nkv = cfg.n_heads * hd, cfg.n_kv_heads * hd
+    return {"wq": ((d, nq), BF16), "wk": ((d, nkv), BF16),
+            "wv": ((d, nkv), BF16), "wo": ((nq, d), BF16)}
+
+
+def _ffn_shapes(cfg: ModelConfig, ffn: str) -> dict:
+    d, f = cfg.d_model, cfg.d_ff
     if ffn == MOE:   # moe_init (repro/models/moe.py:31-39)
         e = cfg.n_experts
-        ffn_p = {"router": ((d, e), BF16), "wi_gate": ((e, d, f), BF16),
-                 "wi_up": ((e, d, f), BF16), "wo": ((e, f, d), BF16)}
-    else:
-        ffn_p = {"wi_up": ((d, f), BF16), "wo": ((f, d), BF16)}
-        if cfg.mlp_gated:
-            ffn_p["wi_gate"] = ((d, f), BF16)
-    return {"norm1": ((d,), BF16), "norm2": ((d,), BF16),
-            "mixer": {"wq": ((d, nq), BF16), "wk": ((d, nkv), BF16),
-                      "wv": ((d, nkv), BF16), "wo": ((nq, d), BF16)},
-            "ffn": ffn_p}
+        return {"router": ((d, e), BF16), "wi_gate": ((e, d, f), BF16),
+                "wi_up": ((e, d, f), BF16), "wo": ((e, f, d), BF16)}
+    ffn_p = {"wi_up": ((d, f), BF16), "wo": ((f, d), BF16)}
+    if cfg.mlp_gated:
+        ffn_p["wi_gate"] = ((d, f), BF16)
+    return ffn_p
+
+
+def _layer_shapes(cfg: ModelConfig, mixer: str, ffn: str) -> dict:
+    """``_init_layer``'s leaves (``repro/models/transformer.py:61-82``):
+    ``norm1`` and the mixer; a cross-attention layer's scalar ``gate``;
+    ``norm2`` and the FFN unless the FFN is ``none``."""
+    check_ported(mixer, ffn)
+    d = cfg.d_model
+    tree = {"norm1": ((d,), BF16),
+            "mixer": _mamba_shapes(cfg) if mixer == MAMBA else _attn_shapes(cfg)}
+    if mixer == CROSS:
+        tree["gate"] = ((), BF16)
+    if ffn != NONE:
+        tree["norm2"] = ((d,), BF16)
+        tree["ffn"] = _ffn_shapes(cfg, ffn)
+    return tree
 
 
 def _stacked(tree: dict, n: int) -> dict:
@@ -70,10 +81,9 @@ def _stacked(tree: dict, n: int) -> dict:
 
 def param_shapes(cfg: ModelConfig) -> dict:
     """The params tree of ``cfg`` with (shape, dtype) at each leaf: bf16,
-    except the fp32 ``A_log``, ``D`` and ``dt_bias`` of Mamba layers."""
-    if cfg.is_encdec or cfg.is_vlm:
-        raise NotImplementedError("encoder-decoder and VLM params are not "
-                                  "ported yet (ROADMAP.md Queue 1 item 8)")
+    except the fp32 ``A_log``, ``D`` and ``dt_bias`` of Mamba layers.
+    Encoder-decoder archs add ``encoder/e<i>`` (attention + MLP layers)
+    and ``encoder/final_norm``."""
     v, d = cfg.padded_vocab, cfg.d_model
     tree: dict = {"embed": ((v, d), BF16), "final_norm": ((d,), BF16)}
     if not cfg.tie_embeddings:
@@ -89,6 +99,10 @@ def param_shapes(cfg: ModelConfig) -> dict:
             f"r{i}": _layer_shapes(cfg, pat[(base + i) % len(pat)],
                                    fpat[(base + i) % len(fpat)])
             for i in range(cfg.n_remainder)}
+    if cfg.is_encdec:
+        tree["encoder"] = {f"e{i}": _layer_shapes(cfg, ATTN, MLP)
+                           for i in range(cfg.encoder_layers)}
+        tree["encoder"]["final_norm"] = ((d,), BF16)
     return tree
 
 
@@ -120,8 +134,9 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
     (``dense_init``, ``mamba_init``): weights are normal x 0.02 drawn in
     fp32 from a ``torch.Generator`` seeded with ``seed`` on ``device`` and
     cast to bf16 (normal x 0.1 for ``conv_w``, x dt_rank^-0.5 for
-    ``dt_proj``); norms and ``conv_b`` are zeros; ``A_log`` = log(1..N)
-    over every channel, ``D`` = 1 and ``dt_bias`` = -4.6 in fp32. Paths,
+    ``dt_proj``); norms, ``conv_b`` and the cross-attention ``gate`` are
+    zeros; ``A_log`` = log(1..N) over every channel, ``D`` = 1 and
+    ``dt_bias`` = -4.6 in fp32. Paths,
     shapes, dtypes and those fixed leaves are the reference's; the random
     numbers are not. A leaf stacked over periods is drawn one period
     slice at a time, each fp32 draw scaled in place and rounded into the
@@ -136,7 +151,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
     def draw(path: str, spec: tuple[Shape, torch.dtype]) -> torch.Tensor:
         shape, dtype = spec
         name = path.rsplit("/", 1)[-1]
-        if "norm" in name or name == "conv_b":
+        if "norm" in name or name in ("conv_b", "gate"):
             return torch.zeros(shape, dtype=dtype, device=dev)
         if name == "A_log":
             n = torch.arange(1, shape[-1] + 1, dtype=FP32, device=dev)

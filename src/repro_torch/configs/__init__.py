@@ -15,14 +15,14 @@ _MODULES = {
     "granite-20b": "repro_torch.configs.granite_20b",
     "granite-moe-1b-a400m": "repro_torch.configs.granite_moe_1b_a400m",
     "mixtral-8x7b": "repro_torch.configs.mixtral_8x7b",
+    "llama-3.2-vision-11b": "repro_torch.configs.llama_3_2_vision_11b",
+    "seamless-m4t-medium": "repro_torch.configs.seamless_m4t_medium",
 }
 
 _NOT_PORTED = {
     "jamba-1.5-large-398b": "Queue 1 item 11 (its Mamba and MoE layers are "
                             "ported; its (mamba, mlp) and (mamba, moe) "
                             "layers and 797 GB need a sharded model)",
-    "llama-3.2-vision-11b": "Queue 1 item 8 (VLM and encoder-decoder)",
-    "seamless-m4t-medium": "Queue 1 item 8 (VLM and encoder-decoder)",
 }
 
 ARCH_IDS = tuple(_MODULES)

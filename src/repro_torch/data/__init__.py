@@ -1,3 +1,3 @@
-from repro_torch.data.pipeline import SyntheticLM
+from repro_torch.data.pipeline import SyntheticLM, modality_stub
 
-__all__ = ["SyntheticLM"]
+__all__ = ["SyntheticLM", "modality_stub"]

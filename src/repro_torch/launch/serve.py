@@ -5,8 +5,12 @@ greedy-decode — port of ``repro.launch.serve``.
         --batch 4 --prompt-len 16 --decode 16
 
 ``--arch`` takes every ported config: gemma3-1b, falcon-mamba-7b,
-granite-3-2b, chatglm3-6b, granite-20b, granite-moe-1b-a400m and
-mixtral-8x7b (``repro_torch.configs.ARCH_IDS``).
+granite-3-2b, chatglm3-6b, granite-20b, granite-moe-1b-a400m,
+mixtral-8x7b, llama-3.2-vision-11b and seamless-m4t-medium
+(``repro_torch.configs.ARCH_IDS``). The VLM and the encoder-decoder take
+the reference's stubbed frontend: ``modality_stub`` image patches or
+speech frames in bf16 (``context``), which seamless-m4t-medium encodes
+again for every decode token, as the reference does.
 
 It runs on CUDA unless given ``--device cpu``. Prefill and decode are timed
 with CUDA events on the card and with ``time.perf_counter`` on the CPU.
@@ -53,9 +57,10 @@ import torch
 
 from repro_torch.bridge import init_params, leaves
 from repro_torch.configs import ARCH_IDS, get_config, get_reduced
-from repro_torch.data import SyntheticLM
+from repro_torch.data import SyntheticLM, modality_stub
 from repro_torch.device import resolve_device
-from repro_torch.launch.steps import make_prefill_step, make_serve_step
+from repro_torch.launch.steps import (make_prefill_step, make_serve_step,
+                                      model_context)
 from repro_torch.svm import (FaultPlan, ModelSpec, StreamingExecutor,
                              run_schedule)
 from repro_torch.svm.scheduler import ADMIT_MODES, POLICIES
@@ -175,34 +180,56 @@ def prompts(cfg, batch: int, prompt_len: int, device) -> torch.Tensor:
     return torch.from_numpy(toks).to(device)
 
 
-def run_prefill(cfg, params, tokens: torch.Tensor, impl: str = "auto"):
-    """Prefill ``tokens`` (B,S) -> (first greedy token (B,1), last-position
-    logits (B,1,V), cache, ms)."""
+def context(cfg, batch: int, device) -> torch.Tensor | None:
+    """The reference launcher's modality context in bf16: ``modality_stub``
+    image patches (B, image_tokens, d) for a VLM, speech frames (B,
+    encoder_frames, d) for an encoder-decoder, None otherwise."""
+    if cfg.is_vlm:
+        ctx = modality_stub("image", batch, cfg.image_tokens, cfg.d_model)
+    elif cfg.is_encdec:
+        ctx = modality_stub("frames", batch, cfg.encoder_frames, cfg.d_model)
+    else:
+        return None
+    return torch.from_numpy(ctx).to(torch.bfloat16).to(device)
+
+
+def run_prefill(cfg, params, tokens: torch.Tensor, ctx=None,
+                impl: str = "auto"):
+    """Prefill ``tokens`` (B,S) with the modality context ``ctx`` ->
+    (first greedy token (B,1), last-position logits (B,1,V), cache, ms)."""
     timer = _Timer(tokens.device)
     timer.start()
-    logits, cache = make_prefill_step(cfg, impl)(params, tokens)
+    logits, cache = make_prefill_step(cfg, impl)(params, tokens, ctx)
     tok = logits[:, -1].argmax(dim=-1).int()[:, None]
     return tok, logits, cache, timer.stop()
 
 
-def decode_tokens(serve_step, params, tok, cache, steps: int):
-    """Greedy-decode ``steps`` tokens through a serve step. Returns
-    (decoded token list, final cache). Decoder-only: the reference's
-    context threading for VLM and encoder-decoder archs comes with ROADMAP
-    Queue 1 item 8."""
+def decode_tokens(cfg, serve_step, params, tok, cache, ctx, steps: int,
+                  impl: str = "auto"):
+    """Greedy-decode ``steps`` tokens through a serve step.
+
+    Encoder-decoder configs re-encode their modality context and thread
+    it through every step; VLMs thread the precomputed image context.
+    Decoder-only configs (``ctx`` is None) take the two-argument path.
+    Returns (decoded token list, final cache)."""
     outs = []
     for _ in range(steps):
-        tok, cache = serve_step(params, tok, cache)
+        if ctx is not None and (cfg.is_encdec or cfg.is_vlm):
+            c = model_context(params, cfg, ctx, impl)
+            tok, cache = serve_step(params, tok, cache, c)
+        else:
+            tok, cache = serve_step(params, tok, cache)
         outs.append(tok)
     return outs, cache
 
 
-def run_decode(cfg, params, tok, cache, steps: int, impl: str = "auto"):
+def run_decode(cfg, params, tok, cache, steps: int, ctx=None,
+               impl: str = "auto"):
     """Greedy-decode ``steps`` tokens after ``tok`` -> (tokens, cache, ms)."""
     timer = _Timer(tok.device)
     timer.start()
-    outs, cache = decode_tokens(make_serve_step(cfg, impl), params, tok,
-                                cache, steps)
+    outs, cache = decode_tokens(cfg, make_serve_step(cfg, impl), params, tok,
+                                cache, ctx, steps, impl)
     return outs, cache, timer.stop()
 
 
@@ -308,10 +335,11 @@ def main(argv: list[str] | None = None) -> None:
                               device=device)
 
     toks = prompts(cfg, args.batch, args.prompt_len, device)
+    ctx = context(cfg, args.batch, device)
     with torch.inference_mode():
-        tok, _, cache, t_pre = run_prefill(cfg, params, toks)
+        tok, _, cache, t_pre = run_prefill(cfg, params, toks, ctx)
         decoded, cache, t_dec = run_decode(cfg, params, tok, cache,
-                                           args.decode)
+                                           args.decode, ctx)
     # the streaming accounting is a pure function of the token count:
     # replay it outside the timed loop so tok/s stays the real number
     if stream is not None:

@@ -1,12 +1,13 @@
-"""Grouped-query self-attention with RoPE, sliding windows and the rolling
-decode buffer — port of ``repro/models/attention.py:31-196`` for the dense
-decoders.
+"""Grouped-query attention with RoPE, sliding windows, the rolling decode
+buffer, cross-attention and bidirectional encoder attention — port of
+``repro/models/attention.py:31-227``.
 
-Prefill attention runs the flash kernel for CUDA tensors and ``_attend``'s
-direct path otherwise (the CPU, or ``impl="torch"``). Decode attention over
-the rolling buffer stays plain PyTorch, as the reference computes it with
-einsums outside any Pallas kernel. Every projection goes through
-``ops.matmul``."""
+Attention over whole sequences (prefill self-attention, cross-attention at
+prefill and decode alike, encoder self-attention) runs the flash kernel
+for CUDA tensors and ``_attend``'s direct path otherwise (the CPU, or
+``impl="torch"``). Decode self-attention over the rolling buffer stays
+plain PyTorch, as the reference computes it with einsums outside any
+Pallas kernel. Every projection goes through ``ops.matmul``."""
 
 from __future__ import annotations
 
@@ -39,20 +40,41 @@ def _softmax(scores: torch.Tensor) -> torch.Tensor:
 
 
 def _attend(q, k, v, qpos, kpos, window: int) -> torch.Tensor:
-    """The reference's direct path (``attention.py:128-138``), causal by
-    absolute positions: scores in the input dtype, softmax in fp32.
+    """The reference's direct path (``attention.py:128-138``): scores in
+    the input dtype, softmax in fp32; causal by absolute positions, or
+    every key visible when ``qpos`` is None. The reference takes its
+    blockwise path once S·T exceeds 4096², which no served shape reaches.
     q: (B,S,KV,G,D) scaled; k/v: (B,T,KV,D); qpos (B|1,S), kpos (B|1,T).
     Returns (B,S,H*D)."""
     B, S, KV, G, D = q.shape
     scores = _gqa_scores(q, k)
-    tp = kpos[:, None, None, None, :]
-    qp = qpos[:, None, None, :, None]
-    mask = tp <= qp
-    if window:
-        mask &= (qp - tp) < window
-    scores = torch.where(mask, scores, NEG_INF)
+    if qpos is not None:
+        tp = kpos[:, None, None, None, :]
+        qp = qpos[:, None, None, :, None]
+        mask = tp <= qp
+        if window:
+            mask &= (qp - tp) < window
+        scores = torch.where(mask, scores, NEG_INF)
     w = _softmax(scores).to(v.dtype)
     return _gqa_out(w, v).reshape(B, S, KV * G * D)
+
+
+def _attend_sequence(q, k, v, impl: str, positions=None,
+                     window: int = 0) -> torch.Tensor:
+    """Attention of whole sequences: the flash kernel for CUDA tensors,
+    else ``_attend``. q: (B,S,H,D) scaled; k/v: (B,T,KV,D); ``positions``
+    are arange(S) for q and k (the kernel's causal rule by index is then
+    the absolute-position mask), or None for no mask. Returns (B,S,H*D)."""
+    B, S, H, D = q.shape
+    KV = k.shape[2]
+    if ops.uses_kernel(q, impl):
+        o = ops.flash_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            causal=positions is not None, window=window, scale=1.0,
+            impl=impl)
+        return o.transpose(1, 2).reshape(B, S, H * D)
+    return _attend(q.view(B, S, KV, H // KV, D), k, v, positions, positions,
+                   window)
 
 
 def self_attention(
@@ -88,16 +110,7 @@ def self_attention(
     q = q * (hd ** -0.5)
 
     if cache is None:
-        if ops.uses_kernel(q, impl):
-            # positions are arange(S) for q and k, so the kernel's causal
-            # rule by index is the absolute-position mask of _attend
-            o = ops.flash_attention(
-                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                causal=True, window=window, scale=1.0, impl=impl)
-            o = o.transpose(1, 2).reshape(B, S, H * hd)
-        else:
-            o = _attend(q.view(B, S, KV, G, hd), k, v, positions, positions,
-                        window)
+        o = _attend_sequence(q, k, v, impl, positions, window)
         new_cache = {"k": k, "v": v, "pos": positions.to(torch.int32)}
         return ops.matmul(o, p["wo"], impl=impl), new_cache
 
@@ -120,3 +133,36 @@ def self_attention(
     w = _softmax(scores).to(v.dtype)
     o = _gqa_out(w, cv.transpose(1, 2)).reshape(B, 1, H * hd)
     return ops.matmul(o, p["wo"], impl=impl), {"k": ck, "v": cv, "pos": cpos}
+
+
+def cross_attention(p: dict, cfg: ModelConfig, x: torch.Tensor,
+                    ctx: torch.Tensor, impl: str = "auto") -> torch.Tensor:
+    """Cross-attention onto a static context (image patches / encoder out).
+    No positional rotation (context is an unordered/pre-encoded set). The
+    context's K/V are projected on every call, at decode too (S = 1), as
+    in the reference. x: (B,S,d); ctx: (B,T,d)."""
+    B, S, _ = x.shape
+    T = ctx.shape[1]
+    hd = cfg.resolved_head_dim
+    H, KV = cfg.n_heads, cfg.n_kv_heads
+    q = ops.matmul(x, p["wq"], impl=impl).view(B, S, H, hd) * (hd ** -0.5)
+    k = ops.matmul(ctx, p["wk"], impl=impl).view(B, T, KV, hd)
+    v = ops.matmul(ctx, p["wv"], impl=impl).view(B, T, KV, hd)
+    return ops.matmul(_attend_sequence(q, k, v, impl), p["wo"], impl=impl)
+
+
+def encoder_self_attention(p: dict, cfg: ModelConfig, x: torch.Tensor,
+                           impl: str = "auto") -> torch.Tensor:
+    """Bidirectional (non-causal) self-attention for encoder stacks, RoPE
+    on arange(S) for q and k."""
+    B, S, _ = x.shape
+    hd = cfg.resolved_head_dim
+    H, KV = cfg.n_heads, cfg.n_kv_heads
+    pos = torch.arange(S, dtype=torch.int32, device=x.device)[None, :]
+    q = ops.matmul(x, p["wq"], impl=impl).view(B, S, H, hd)
+    k = ops.matmul(x, p["wk"], impl=impl).view(B, S, KV, hd)
+    v = ops.matmul(x, p["wv"], impl=impl).view(B, S, KV, hd)
+    q = apply_rope(q, pos, cfg.rope_theta, cfg.partial_rotary)
+    k = apply_rope(k, pos, cfg.rope_theta, cfg.partial_rotary)
+    q = q * (hd ** -0.5)
+    return ops.matmul(_attend_sequence(q, k, v, impl), p["wo"], impl=impl)

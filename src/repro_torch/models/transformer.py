@@ -4,10 +4,12 @@ layout — port of ``repro/models/transformer.py:139-454``.
 The params and caches keep the reference's layout (layers of whole periods
 stacked along a leading ``n_periods`` axis, the rest unrolled as
 ``remainder/r<i>``); the reference's ``lax.scan`` over periods becomes a
-Python loop over slices of the stacked tensors. Attention layers with an
-MLP or a MoE FFN (``models/moe.py``) and attention-free Mamba layers (no
-FFN) are ported: cross-attention layers and ``encode`` raise
-``NotImplementedError``. ``impl`` picks the kernels (``kernels/ops.py``)."""
+Python loop over slices of the stacked tensors. Ported layer kinds:
+attention with an MLP or a MoE FFN (``models/moe.py``), attention without
+an FFN, gated cross-attention with an MLP onto a context ``ctx`` (image
+patches, or the encoder's output from ``encode``), and attention-free
+Mamba layers; Mamba layers with an FFN raise ``NotImplementedError``.
+``impl`` picks the kernels (``kernels/ops.py``)."""
 
 from __future__ import annotations
 
@@ -17,26 +19,35 @@ from repro_torch.kernels import ops
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import mamba as mamba_lib
 from repro_torch.models import moe as moe_lib
-from repro_torch.models.config import (ATTN, ATTN_LOCAL, MAMBA, MLP, MOE,
-                                       NONE, ModelConfig)
+from repro_torch.models.config import (ATTN, ATTN_LOCAL, CROSS, MAMBA, MLP,
+                                       MOE, NONE, ModelConfig)
 from repro_torch.models.layers import embed_apply, mlp_apply, rms_norm
 
 
 _PORTED = {(ATTN, MLP), (ATTN_LOCAL, MLP), (ATTN, MOE), (ATTN_LOCAL, MOE),
-           (MAMBA, NONE)}
+           (ATTN, NONE), (CROSS, MLP), (MAMBA, NONE)}
 
 
-def _check_ported(mixer: str, ffn: str) -> None:
+def check_ported(mixer: str, ffn: str) -> None:
     if (mixer, ffn) not in _PORTED:
         raise NotImplementedError(
-            f"layer kind ({mixer}, {ffn}) is not ported yet: cross-attention "
-            f"comes with ROADMAP.md Queue 1 item 8, Mamba layers with an FFN "
-            f"with item 11")
+            f"layer kind ({mixer}, {ffn}) is not ported yet: Mamba layers "
+            f"with an FFN come with ROADMAP.md Queue 1 item 11")
 
 
-def encode(*args, **kwargs):
-    raise NotImplementedError("encode (encoder-decoder archs) is not ported "
-                              "yet: ROADMAP.md Queue 1 item 8")
+def encode(params: dict, cfg: ModelConfig, frames: torch.Tensor,
+           impl: str = "auto") -> torch.Tensor:
+    """Encoder stack over precomputed modality-frontend frames (enc-dec):
+    (B,T,d) -> (B,T,d), layers ``e0`` .. ``e<n-1>`` in numeric order."""
+    x = frames
+    enc = params["encoder"]
+    for i in range(cfg.encoder_layers):
+        lp = enc[f"e{i}"]
+        h = rms_norm(x, lp["norm1"], cfg.norm_eps)
+        x = x + attn_lib.encoder_self_attention(lp["mixer"], cfg, h, impl)
+        h2 = rms_norm(x, lp["norm2"], cfg.norm_eps)
+        x = x + mlp_apply(lp["ffn"], h2, cfg.act, impl=impl)
+    return rms_norm(x, enc["final_norm"], cfg.norm_eps)
 
 
 def _theta_for(cfg: ModelConfig, mixer: str) -> float:
@@ -51,12 +62,14 @@ def _kind(cfg: ModelConfig, j: int) -> tuple[str, str]:
 
 
 def _apply_layer(lp: dict, cfg: ModelConfig, x: torch.Tensor, mixer: str,
-                 ffn: str, *, positions: torch.Tensor, cache: dict | None,
+                 ffn: str, *, positions: torch.Tensor,
+                 ctx: torch.Tensor | None, cache: dict | None,
                  impl: str) -> tuple[torch.Tensor, dict, torch.Tensor | None]:
     """One residual layer. Returns (x, state, MoE aux loss): the state is
     the prefill K/V or Mamba state when ``cache`` is None, else the decode
-    cache updated in place; the aux is None but for MoE layers."""
-    _check_ported(mixer, ffn)
+    cache updated in place, and ``{}`` for cross-attention, which keeps no
+    cache; the aux is None but for MoE layers."""
+    check_ported(mixer, ffn)
     h = rms_norm(x, lp["norm1"], cfg.norm_eps)
     if mixer == MAMBA:
         if cache is None:
@@ -69,11 +82,18 @@ def _apply_layer(lp: dict, cfg: ModelConfig, x: torch.Tensor, mixer: str,
                 cache[name].copy_(leaf)
             state = cache
         return x + o, state, None
-    window = cfg.sliding_window if mixer == ATTN_LOCAL else 0
-    o, kv = attn_lib.self_attention(
-        lp["mixer"], cfg, h, positions=positions, window=window,
-        theta=_theta_for(cfg, mixer), cache=cache, impl=impl)
+    if mixer == CROSS:
+        o = attn_lib.cross_attention(lp["mixer"], cfg, h, ctx, impl)
+        o = o * torch.tanh(lp["gate"].float()).to(o.dtype)
+        kv = {}
+    else:
+        window = cfg.sliding_window if mixer == ATTN_LOCAL else 0
+        o, kv = attn_lib.self_attention(
+            lp["mixer"], cfg, h, positions=positions, window=window,
+            theta=_theta_for(cfg, mixer), cache=cache, impl=impl)
     x = x + o
+    if ffn == NONE:
+        return x, kv, None
     h2 = rms_norm(x, lp["norm2"], cfg.norm_eps)
     if ffn == MOE:
         f, aux = moe_lib.moe_apply(lp["ffn"], cfg, h2, impl=impl)
@@ -118,17 +138,21 @@ def _lm_head(params: dict, cfg: ModelConfig, x: torch.Tensor,
 
 
 def forward_with_aux(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
-                     impl: str = "auto") -> tuple[torch.Tensor, torch.Tensor]:
+                     ctx: torch.Tensor | None = None, impl: str = "auto"
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
     """Teacher-forced full-sequence pass -> ((B, S, padded_vocab) logits,
     the MoE aux loss summed over layers over max(1, MoE layers)), as the
-    reference's ``forward`` returns them (``transformer.py:200-246``)."""
+    reference's ``forward`` returns them (``transformer.py:200-246``).
+    ``ctx`` is what cross-attention layers attend to: image patches, or
+    the output of ``encode``."""
     B, S = tokens.shape
     x = embed_apply(params["embed"], tokens, cfg.embed_scale, cfg.d_model)
     positions = torch.arange(S, dtype=torch.int32, device=x.device)[None, :]
     aux = x.new_zeros((), dtype=torch.float32)
     for key, i, mixer, ffn in _slots(cfg):
         x, _, a = _apply_layer(_layer_params(params, key, i), cfg, x, mixer,
-                               ffn, positions=positions, cache=None, impl=impl)
+                               ffn, positions=positions, ctx=ctx, cache=None,
+                               impl=impl)
         if a is not None:
             aux = aux + a
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
@@ -137,10 +161,11 @@ def forward_with_aux(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
 
 
 def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
-            impl: str = "auto") -> torch.Tensor:
+            ctx: torch.Tensor | None = None, impl: str = "auto"
+            ) -> torch.Tensor:
     """Teacher-forced full-sequence pass -> (B, S, padded_vocab) logits
     (``forward_with_aux`` without the aux loss)."""
-    return forward_with_aux(params, cfg, tokens, impl)[0]
+    return forward_with_aux(params, cfg, tokens, ctx, impl)[0]
 
 
 # ----------------------------------------------------------------- caches
@@ -182,9 +207,11 @@ def init_cache(cfg: ModelConfig, B: int, S: int, device=None) -> dict:
     """Decode cache sized for a context of S tokens."""
     bufs = {}
     for key, i, mixer, ffn in _slots(cfg):
-        _check_ported(mixer, ffn)
+        check_ported(mixer, ffn)
         if mixer == MAMBA:
             bufs[(key, i)] = mamba_lib.mamba_init_cache(cfg, B, device)
+        elif mixer == CROSS:
+            bufs[(key, i)] = {}
         else:
             bufs[(key, i)] = _empty_buffer(
                 cfg, B, _buffer_width(cfg, mixer, S), device)
@@ -211,6 +238,7 @@ def _kv_to_buffer(kv: dict, W: int) -> dict:
 # ---------------------------------------------------------------- prefill
 
 def prefill_hidden(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+                   ctx: torch.Tensor | None = None,
                    cache_len: int | None = None, impl: str = "auto"
                    ) -> tuple[torch.Tensor, dict]:
     """``prefill`` up to the final norm: (B,S,d_model) hidden states and
@@ -223,9 +251,9 @@ def prefill_hidden(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     bufs = {}
     for key, i, mixer, ffn in _slots(cfg):
         x, state, _ = _apply_layer(_layer_params(params, key, i), cfg, x,
-                                   mixer, ffn, positions=positions,
+                                   mixer, ffn, positions=positions, ctx=ctx,
                                    cache=None, impl=impl)
-        bufs[(key, i)] = state if mixer == MAMBA else \
+        bufs[(key, i)] = state if mixer in (MAMBA, CROSS) else \
             _kv_to_buffer(state, _buffer_width(cfg, mixer, CL))
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     t = torch.full((B,), S, dtype=torch.int32, device=x.device)
@@ -233,28 +261,29 @@ def prefill_hidden(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
 
 
 def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
-            cache_len: int | None = None, impl: str = "auto"
-            ) -> tuple[torch.Tensor, dict]:
+            ctx: torch.Tensor | None = None, cache_len: int | None = None,
+            impl: str = "auto") -> tuple[torch.Tensor, dict]:
     """Process a prompt, returning (logits, decode cache). Without
     ``cache_len`` every buffer is S wide, as in the reference."""
-    x, cache = prefill_hidden(params, cfg, tokens, cache_len, impl)
+    x, cache = prefill_hidden(params, cfg, tokens, ctx, cache_len, impl)
     return _lm_head(params, cfg, x, impl), cache
 
 
 # ----------------------------------------------------------------- decode
 
 def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
-                cache: dict, impl: str = "auto") -> tuple[torch.Tensor, dict]:
+                cache: dict, ctx: torch.Tensor | None = None,
+                impl: str = "auto") -> tuple[torch.Tensor, dict]:
     """One greedy decode step. token: (B, 1) int32. Writes the token's K/V
     into ``cache``'s attention buffers and the new ``h`` and ``conv`` into
     its Mamba layers, all in place (the reference returns new arrays; the
     port saves the copy); the returned cache shares them and carries
-    ``t + 1``."""
+    ``t + 1``. Cross-attention layers attend to the whole ``ctx``."""
     x = embed_apply(params["embed"], token, cfg.embed_scale, cfg.d_model)
     positions = cache["t"][:, None]                            # (B,1)
     for key, i, mixer, ffn in _slots(cfg):
         x, _, _ = _apply_layer(_layer_params(params, key, i), cfg, x, mixer,
-                               ffn, positions=positions,
+                               ffn, positions=positions, ctx=ctx,
                                cache=_layer_params(cache, key, i), impl=impl)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     new_cache = dict(cache, t=cache["t"] + 1)

@@ -56,7 +56,7 @@ def test_configs_match_reference():
     assert dataclasses.asdict(get_config("gemma3-1b")) == \
         dataclasses.asdict(jget_config("gemma3-1b"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config("llama-3.2-vision-11b")
+        get_config("jamba-1.5-large-398b")
     with pytest.raises(ValueError):
         get_config("no-such-arch")
 
@@ -99,14 +99,16 @@ def test_init_cache_matches_reference_layout():
 
 
 def test_unported_layer_kinds_raise():
-    cfg = dataclasses.replace(get_reduced("gemma3-1b"),
-                              layer_pattern=("cross",))
+    """(mamba, mlp), one of jamba's layer kinds (ROADMAP Queue 1 item
+    11)."""
+    cfg = dataclasses.replace(get_reduced("falcon-mamba-7b"),
+                              ffn_pattern=("mlp",))
     with pytest.raises(NotImplementedError):
         bridge.param_shapes(cfg)
     with pytest.raises(NotImplementedError):
         tm.init_cache(cfg, 1, 4)
     with pytest.raises(NotImplementedError):
-        tm.encode()
+        tm.check_ported("mamba", "mlp")
 
 
 # ------------------------------------------------------------------ bridge

@@ -46,6 +46,8 @@ REF_LINK = tcore.CostParams(link_bw=32e9)
 REF_RATE = 197e12 * 0.4
 REF = dict(cost_params=REF_LINK, compute_rate=REF_RATE)
 ARCHS = ("gemma3-1b", "falcon-mamba-7b")
+# the VLM and the encoder-decoder: their specs and single-spec schedules
+CTX_ARCHS = ("llama-3.2-vision-11b", "seamless-m4t-medium")
 WIDTHS = ("reduced", "full")
 POLICIES = ("fifo", "admission", "svm_aware")
 CHAOS = (None, 0, 1, 3)      # clean, then FaultPlan.default seeds
@@ -91,7 +93,7 @@ def _fields(spec):
 @pytest.mark.parametrize("width,source", [("reduced", "cpu"),
                                           ("reduced", "meta"),
                                           ("full", "meta")])
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + CTX_ARCHS)
 def test_model_spec_from_params_equals_reference(arch, width, source):
     ref, port = _specs(arch, width)
     if source == "cpu":
@@ -101,7 +103,9 @@ def test_model_spec_from_params_equals_reference(arch, width, source):
     assert _fields(port) == _fields(ref)
     if width == "full":
         assert len(port.leaves) == {"gemma3-1b": 74,
-                                    "falcon-mamba-7b": 13}[arch]
+                                    "falcon-mamba-7b": 13,
+                                    "llama-3.2-vision-11b": 49,
+                                    "seamless-m4t-medium": 126}[arch]
 
 
 def test_model_spec_from_params_takes_the_batch():
@@ -367,7 +371,7 @@ def _conserved(r):
 @pytest.mark.parametrize("chaos", CHAOS)
 @pytest.mark.parametrize("policy", POLICIES)
 @pytest.mark.parametrize("width", WIDTHS)
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + CTX_ARCHS)
 def test_run_schedule_equals_reference(arch, width, policy, chaos):
     jspec, tspec = _specs(arch, width)
     got, want = _pair([jspec], [tspec], _pool(jspec), chaos,

@@ -1,11 +1,15 @@
 """The port's serving path (repro_torch.launch) against the reference's
-on the reduced gemma3-1b and the five decoders ported with it
-(granite-3-2b, chatglm3-6b, granite-20b, granite-moe-1b-a400m,
-mixtral-8x7b), and the port's isolation from the JAX package.
+on the reduced gemma3-1b, the five decoders ported with it (granite-3-2b,
+chatglm3-6b, granite-20b, granite-moe-1b-a400m, mixtral-8x7b) and the
+VLM and encoder-decoder (llama-3.2-vision-11b, seamless-m4t-medium), and
+the port's isolation from the JAX package.
 
 Serve: prefill with ``cache_len`` at its default, so every decode buffer
 is ``prompt_len`` wide (the reference's quirk, which the port keeps), then
-decode past ``prompt_len`` teacher-forced on the reference's tokens."""
+decode past ``prompt_len`` teacher-forced on the reference's tokens. The
+VLM and the encoder-decoder take the launcher's context (image patches,
+or frames encoded again for every step), and their cross-attention gates
+are set to GATE on both sides: at init (0) the cross layers are no-ops."""
 
 import ast
 import os
@@ -20,11 +24,14 @@ pytest.importorskip("jax")
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
+import ml_dtypes  # noqa: E402
 
 from repro.configs import get_reduced as jget_reduced  # noqa: E402
 from repro.data import SyntheticLM as JSyntheticLM  # noqa: E402
+from repro.launch import serve as jserve  # noqa: E402
 from repro.launch import steps as jsteps  # noqa: E402
 from repro.models import decode_step as jdecode_step  # noqa: E402
+from repro.models import encode as jencode  # noqa: E402
 from repro.models import init_params as jinit_params  # noqa: E402
 from repro_torch import bridge  # noqa: E402
 from repro_torch.configs import get_reduced  # noqa: E402
@@ -37,6 +44,8 @@ MARGIN = 4e-2   # greedy tokens must agree where the reference's top-2 gap excee
 BATCH, PROMPT, DECODE = 2, 5, 8
 NEW_ARCHS = ("granite-3-2b", "chatglm3-6b", "granite-20b",
              "granite-moe-1b-a400m", "mixtral-8x7b")
+CTX_ARCHS = ("llama-3.2-vision-11b", "seamless-m4t-medium")
+GATE = 0.5
 
 
 def _np(x):
@@ -58,40 +67,62 @@ def test_prompts_match_reference():
                                   want)
 
 
+def _gated(tree, cfg):
+    """The numpy params tree with every cross-attention gate at GATE."""
+    periods = {k: dict(v, gate=np.full(v["gate"].shape, GATE,
+                                       ml_dtypes.bfloat16))
+               if "gate" in v else v for k, v in tree["periods"].items()}
+    return dict(tree, periods=periods)
+
+
 def _serve_steps_match_reference_past_prompt_len(arch):
     jcfg = jget_reduced(arch)
     cfg = get_reduced(arch)
-    params_j = jinit_params(jcfg, jax.random.PRNGKey(0))
-    params_t = bridge.params_from_numpy(jax.tree.map(np.asarray, params_j),
-                                        cfg, device="cpu")
+    tree = jax.tree.map(np.asarray, jinit_params(jcfg, jax.random.PRNGKey(0)))
+    if arch in CTX_ARCHS:
+        tree = _gated(tree, cfg)
+    params_j = jax.tree.map(jnp.asarray, tree)
+    params_t = bridge.params_from_numpy(tree, cfg, device="cpu")
     prompts = serve.prompts(cfg, BATCH, PROMPT, "cpu")
+    # the launcher's context, the same bits on both sides (test_torch_vlm)
+    ctx_t = serve.context(cfg, BATCH, "cpu")
+    ctx_j = () if ctx_t is None else (jnp.asarray(
+        ctx_t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)),)
 
     ref_prefill = jax.jit(jsteps.make_prefill_step(jcfg))
     ref_serve = jax.jit(jsteps.make_serve_step(jcfg))
-    ref_decode = jax.jit(lambda p, t, c: jdecode_step(p, jcfg, t, c))
+    ref_decode = jax.jit(lambda p, t, c, *x: jdecode_step(p, jcfg, t, c, *x))
     port_serve = steps.make_serve_step(cfg)
+    # what decode_tokens hands each step: frames encoded anew, or patches
+    dec_j = tuple(jencode(params_j, jcfg, x) if jcfg.is_encdec else x
+                  for x in ctx_j)
+    dec_t = steps.model_context(params_t, cfg, ctx_t)
 
-    lj, cj = ref_prefill(params_j, jnp.asarray(prompts.numpy()))
-    lt, ct = steps.make_prefill_step(cfg)(params_t, prompts)
+    lj, cj = ref_prefill(params_j, jnp.asarray(prompts.numpy()), *ctx_j)
+    lt, ct = steps.make_prefill_step(cfg)(params_t, prompts, ctx_t)
     assert lt.shape == lj.shape == (BATCH, 1, cfg.vocab)
     np.testing.assert_allclose(_np(lt), _np(lj), **TOL)
-    # the quirk: every layer's buffer is prompt_len wide, globals included
-    for layer in ct["periods"].values():
-        assert layer["k"].shape[3] == PROMPT
-    for j in range(len(cfg.layer_pattern)):
-        assert cj["periods"][f"l{j}"]["k"].shape[3] == PROMPT
+    # the quirk: every layer's buffer is prompt_len wide, globals included;
+    # cross-attention layers keep no cache
+    for j, mixer in enumerate(cfg.layer_pattern):
+        for cache in (ct, cj):
+            layer = cache["periods"][f"l{j}"]
+            if mixer == "cross":
+                assert layer == {}
+            else:
+                assert layer["k"].shape[3] == PROMPT
 
     tok_j = jnp.argmax(lj[:, -1], axis=-1).astype(jnp.int32)[:, None]
     _agree_where_decisive(_np(lj[:, -1]), np.asarray(tok_j[:, 0]),
                           _np(lt[:, -1]).argmax(-1))
     for _ in range(DECODE):       # positions PROMPT .. PROMPT+DECODE-1 wrap
         tok_t = torch.tensor(np.asarray(tok_j))
-        logits_j, cj_next = ref_decode(params_j, tok_j, cj)
-        logits_t, ct_next = tm.decode_step(params_t, cfg, tok_t, ct)
+        logits_j, cj_next = ref_decode(params_j, tok_j, cj, *dec_j)
+        logits_t, ct_next = tm.decode_step(params_t, cfg, tok_t, ct, dec_t)
         np.testing.assert_allclose(_np(logits_t), _np(logits_j), **TOL)
         # serve_step from the same cache: rewrites the same slot, idempotent
-        ids_j, _ = ref_serve(params_j, tok_j, cj)
-        ids_t, _ = port_serve(params_t, tok_t, ct)
+        ids_j, _ = ref_serve(params_j, tok_j, cj, *dec_j)
+        ids_t, _ = port_serve(params_t, tok_t, ct, dec_t)
         _agree_where_decisive(_np(logits_j[:, 0]), np.asarray(ids_j[:, 0]),
                               ids_t[:, 0].numpy())
         tok_j, cj, ct = ids_j, cj_next, ct_next
@@ -102,9 +133,40 @@ def test_serve_steps_match_reference_past_prompt_len():
     _serve_steps_match_reference_past_prompt_len("gemma3-1b")
 
 
-@pytest.mark.parametrize("arch", NEW_ARCHS)
+@pytest.mark.parametrize("arch", NEW_ARCHS + CTX_ARCHS)
 def test_new_arch_serve_steps_match_reference_past_prompt_len(arch):
     _serve_steps_match_reference_past_prompt_len(arch)
+
+
+@pytest.mark.parametrize("arch", CTX_ARCHS)
+def test_decode_tokens_threads_the_context_as_the_reference(arch):
+    """``decode_tokens``, which encodes the frames again for every step of
+    the encoder-decoder, gives the reference's first token where its
+    top-2 gap is decisive, then from the same token the reference's
+    DECODE greedy tokens (gates at GATE)."""
+    jcfg, cfg = jget_reduced(arch), get_reduced(arch)
+    tree = _gated(jax.tree.map(np.asarray,
+                               jinit_params(jcfg, jax.random.PRNGKey(0))), cfg)
+    params_j = jax.tree.map(jnp.asarray, tree)
+    params_t = bridge.params_from_numpy(tree, cfg, device="cpu")
+    prompts = serve.prompts(cfg, BATCH, PROMPT, "cpu")
+    ctx_t = serve.context(cfg, BATCH, "cpu")
+    ctx_j = jnp.asarray(ctx_t.view(torch.int16).numpy().view(
+        ml_dtypes.bfloat16))
+    lj, cj = jax.jit(jsteps.make_prefill_step(jcfg))(
+        params_j, jnp.asarray(prompts.numpy()), ctx_j)
+    tok_j = jnp.argmax(lj[:, -1], axis=-1).astype(jnp.int32)[:, None]
+    tok_t, _, ct, _ = serve.run_prefill(cfg, params_t, prompts, ctx_t)
+    _agree_where_decisive(_np(lj[:, -1]), np.asarray(tok_j[:, 0]),
+                          tok_t[:, 0].numpy())
+    want, _ = jserve.decode_tokens(jcfg, jax.jit(jsteps.make_serve_step(jcfg)),
+                                   params_j, tok_j, cj, ctx_j, DECODE)
+    got, ct = serve.decode_tokens(cfg, steps.make_serve_step(cfg), params_t,
+                                  torch.tensor(np.asarray(tok_j)), ct, ctx_t,
+                                  DECODE)
+    assert len(got) == DECODE and ct["t"].tolist() == [PROMPT + DECODE] * BATCH
+    assert np.array_equal(np.concatenate([np.asarray(t) for t in want], 1),
+                          torch.cat(got, 1).numpy())
 
 
 def test_main_runs_on_cpu(capsys):
@@ -114,7 +176,7 @@ def test_main_runs_on_cpu(capsys):
     assert "decoded 3 tokens" in out and "on cpu" in out
 
 
-@pytest.mark.parametrize("arch", NEW_ARCHS)
+@pytest.mark.parametrize("arch", NEW_ARCHS + CTX_ARCHS)
 def test_main_runs_every_new_arch_on_cpu(arch, capsys):
     serve.main(["--arch", arch, "--reduced", "--device", "cpu", "--batch",
                 "2", "--prompt-len", "4", "--decode", "3"])

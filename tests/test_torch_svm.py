@@ -396,7 +396,9 @@ def test_executor_defaults_to_the_h100_preset():
                                        ("falcon-mamba-7b", 0.4),
                                        ("falcon-mamba-7b", 0.6),
                                        ("granite-3-2b", 0.6),
-                                       ("granite-moe-1b-a400m", 0.6)])
+                                       ("granite-moe-1b-a400m", 0.6),
+                                       ("llama-3.2-vision-11b", 0.6),
+                                       ("seamless-m4t-medium", 0.6)])
 def test_weight_stream_report_equals_reference(arch, frac, mode):
     ref, port = _streams(arch, mode, "lrf", frac=frac)
     assert port.layer_paths == ref.layer_paths
@@ -453,7 +455,8 @@ def _svm_line(out):
 @pytest.mark.parametrize("arch,mode,policy", [
     ("gemma3-1b", "svm_aware", "lrf"), ("gemma3-1b", "zero_copy", "clock"),
     ("falcon-mamba-7b", "naive", "lru"), ("falcon-mamba-7b", "measured",
-                                         "random")])
+                                         "random"),
+    ("seamless-m4t-medium", "svm_aware", "lrf")])
 def test_main_prints_the_reference_svm_stream_line(arch, mode, policy,
                                                    monkeypatch, capsys):
     flags = ["--arch", arch, "--reduced", "--svm-budget-frac", "0.6",
