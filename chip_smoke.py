@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
 
-1. Prints the card's name and power limit, then builds the five CUDA
+1. Prints the card's name and power limit, then builds the six CUDA
    kernels from ``src/repro_torch/kernels/csrc`` with nvcc (sm_90a), one
    nvcc process each, all at once.
 2. Holds the matmul kernel against its plain version at every shape the
@@ -123,7 +123,41 @@
    the gates at REDUCED_GATE; seamless also runs the SVM phase and the
    launcher with ``--svm-budget-frac 0.6 --svm-mode svm_aware
    --requests 8``.
-8. The paper's Category-I and Category-II workloads: holds the STREAM
+8. Training (after the serve phases, their memory freed):
+   (a) the flash backward kernel (``flash_attention_bwd``) at BWD_CASES:
+   granite-3-2b's microbatch (32:8, D 64, causal), gemma3-1b's local
+   layers (4:1, D 256, window 512), the VLM's cross-attention (D 128, S
+   1024 against T 6 404), the reduced D = 16, and edges (D 32 with S < T
+   and a window, S > T, non-causal with a window): the forward route's
+   row log-sum-exp against the plain version's, dq, dk and dv against
+   ``flash_attention_bwd_ref`` on the same inputs (BWD_TOL: an atol a
+   row of dq, a key of dk and dv), a second call's bits against the
+   first's, the tolerances' power to reject a zeroed and a 10 %-off
+   output, whole or in the back half of its rows; the kernel's relative
+   L2 distance to an fp64 truth within PATH_RATIO of the plain
+   version's; timed beside the plain version and the backward pass of
+   SDPA through autograd.
+   (c) One train step (AdamW) of each reduced non-Mamba config on the
+   card against the CPU: loss and grad norm within 2e-2 (MoE layers on
+   the CPU's routing, gates at REDUCED_GATE).
+   The matmul kernel at the training shapes of granite-3-2b's microbatch:
+   each projection's forward, dA and dW products and the tied head's
+   chunk, beside ``torch.matmul`` and the transposes.
+   (b) On granite-3-2b's full-width params cut to TRAIN_PATHS_LAYERS
+   layers, one microbatch's grads through the kernels and through the
+   plain path, each against an fp32 plain run: every leaf's relative L2
+   through the kernels within PATH_RATIO of the plain path's.
+   (d) granite-3-2b at full width: its fresh params equal the ones its
+   serve phase served, then 3 steps of ``make_train_step`` (4
+   microbatches of 2 x 1024 tokens, AdamW) through ``TrainSupervisor``
+   with a checkpoint period past the run; finite losses and grad norms,
+   launches a step by kernel and route exactly ``train_counts``, every
+   leaf moved; step walls, tokens/s, peak memory, and one more step under
+   the profiler (device busy, idle share).
+   (e) ``python -m repro_torch.launch.train --reduced --steps 8`` into a
+   temporary ``--ckpt``, twice: the second run resumes from step 8 with
+   the first run's state bit for bit.
+9. The paper's Category-I and Category-II workloads: holds the STREAM
    triad and Jacobi-2d kernels against their plain versions bit for bit
    (fp32 triad: at most 1 ulp, the count printed) at (32768, 32768) in
    fp32 and bf16, above 2^31 elements and on ragged grids; runs Category
@@ -131,13 +165,13 @@
    orders them) at (32768, 32768) fp32 through ``repro_torch.kernels.ops``
    with launch counts; prints one ``dos_sweep`` of the port's copy of the
    SVM core. Then frees all of it.
-9. Prints the host link's copy rate (``link_bw``: a 1 GiB pinned tensor,
+10. Prints the host link's copy rate (``link_bw``: a 1 GiB pinned tensor,
    ``.to("cuda", non_blocking=True)``, CUDA events, median of 5; the
    pageable rate beside it) and the serving rate of each model (its decode
    flops as the weight stream counts them, 2 x batch x params a token,
    over the decode step's device-busy time, and over its wall time): the
    two numbers of ``repro_torch.core.costmodel``'s H100 preset.
-10. Prints one JSON line of kernel numbers, the nvidia-smi line, and last
+11. Prints one JSON line of kernel numbers, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
 Every time is the median over repeats, timed with CUDA events; matmul
@@ -173,7 +207,9 @@ EXP_RATE = 132 * 16 * 1.98e9
 L2_BYTES = 50 * 2 ** 20
 BATCH, PROMPT, DECODE = 4, 1024, 32
 # a tolerance's atol_rel is an atol as a fraction of the largest |want| of
-# the tensor; where it has atol too, the smaller of the two holds
+# the tensor; where it has atol too, the smaller of the two holds; its
+# atol_row adds, for each element, that fraction of the largest |want| of
+# its row (the last axis)
 MM_TOL = {torch.bfloat16: dict(rtol=1e-2, atol=1e-2),   # one bf16 rounding of the output
           torch.float32: dict(rtol=1e-4, atol=1e-4)}
 # P rounded to bf16 against another running max; atol_rel keeps the limit
@@ -269,6 +305,45 @@ CTX_COUNTS = {
                                  flash_attention={"wgmma": 24})),
 }
 
+# the train phase: granite-3-2b at full width, its TrainSettings'
+# microbatches, global batch 8 x 1024 tokens, 3 steps of AdamW through
+# TrainSupervisor; phase (b) cuts it to TRAIN_PATHS_LAYERS layers, phase
+# (e) runs the launcher on the reduced config for LAUNCHER_TRAIN_STEPS
+TRAIN_ARCH = "granite-3-2b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 1024, 3
+TRAIN_PATHS_LAYERS = 4
+LAUNCHER_TRAIN_STEPS = 8
+# the row log-sum-exp, fp32 in both versions (the wgmma route's ex2.approx
+# within 2^-22 a term)
+LSE_TOL = dict(rtol=1e-3, atol=1e-3)
+# dq, dk and dv: P and dS are rounded to bf16 as product operands (2^-9
+# of each term), so an element's error follows its row's sum of |dS K|
+# (dq) or its key's of |dS^T Q| (dk) and |P^T dO| (dv), which cancel to
+# far less than that: the atol is 2e-2 of the largest |want| of the
+# element's own row of dq or key of dk and dv, not of the tensor (under
+# the causal mask the first rows and keys hold values 100x the last
+# ones'), with a floor of 1e-4 of the tensor's largest for the rows
+# whose true value is 0 (dq's first row: P = 1 makes dS vanish up to
+# fp32 rounding, and the two versions round differently)
+BWD_TOL = dict(rtol=2e-2, atol_row=2e-2, atol_rel=1e-4)
+# loss and grad norm of one reduced train step, card against CPU, relative
+REDUCED_TRAIN_TOL = 2e-2
+# the reduced non-Mamba configs reduced_vs_cpu covers: one train step each
+TRAIN_REDUCED = ("gemma3-1b", MOE_ARCH, "granite-3-2b", "chatglm3-6b",
+                 "granite-20b", "mixtral-8x7b", VLM_ARCH, ENCDEC_ARCH)
+# the backward kernel's cases: granite-3-2b's microbatch (32:8, D 64,
+# causal), gemma3-1b's local layers (4:1, D 256, window 512), the VLM's
+# cross-attention (32:8, D 128, S 1024 against T 6 404), the reduced
+# granite-3-2b (D 16), and edges: D 32 with S < T and a window, S > T,
+# non-causal with a window
+BWD_CASES = ((2, 32, 8, 1024, 1024, 64, True, 0, "granite-3-2b"),
+             (2, 4, 1, 1024, 1024, 256, True, 512, "gemma3-1b local"),
+             (2, 32, 8, 1024, 6404, 128, False, 0, "vlm cross"),
+             (2, 4, 2, 100, 100, 16, True, 0, "reduced"),
+             (1, 4, 2, 100, 150, 32, True, 40, "d32 S<T window"),
+             (1, 4, 1, 300, 200, 128, True, 0, "S>T"),
+             (1, 2, 2, 200, 300, 256, False, 100, "nc window"))
+
 
 def smi() -> str:
     return subprocess.run(
@@ -320,10 +395,14 @@ def free_memory() -> None:
     torch.cuda.empty_cache()
 
 
-def atol_of(want, tol) -> float:
+def atol_of(want, tol):
+    """The atol of ``tol`` for ``want``: a float, or with ``atol_row`` a
+    tensor of one atol a row."""
     atol = tol.get("atol", math.inf)
     if "atol_rel" in tol:
         atol = min(atol, tol["atol_rel"] * want.float().abs().max().item())
+    if "atol_row" in tol:
+        atol = atol + tol["atol_row"] * want.float().abs().amax(-1, keepdim=True)
     return atol
 
 
@@ -340,17 +419,32 @@ def check_close(name: str, got, want, tol) -> float:
         raise AssertionError(f"{name}: non-finite output")
     err = (got.float() - want.float()).abs().max().item()
     if not within(got, want, tol):
+        atol = atol_of(want, tol)
+        if torch.is_tensor(atol):
+            atol = atol.max().item()
         raise AssertionError(f"{name}: max |err| {err:.3e} over tolerance "
-                             f"rtol={tol['rtol']} atol={atol_of(want, tol):.3e}")
+                             f"rtol={tol['rtol']} atol={atol:.3e}")
     return err
 
 
-def check_discerns(name: str, want, tol) -> None:
-    """The tolerance must reject an output of zeros and one 10% off."""
-    for bad in (torch.zeros_like(want), want * 1.1):
+def check_discerns(name: str, want, tol, rows: bool = False) -> None:
+    """The tolerance must reject an output of zeros and one 10% off; with
+    ``rows``, also one whose back half of rows (the second-last axis, of
+    the rows that hold a nonzero value anywhere) is zeroed or 10% off."""
+    bads = [torch.zeros_like(want), want * 1.1]
+    if rows:
+        flat = want.reshape(-1, *want.shape[-2:])
+        live = torch.nonzero(flat.abs().amax(-1).amax(0) > 0).flatten()
+        back = live[len(live) // 2:]
+        for f in (0.0, 1.1):
+            bad = flat.clone()
+            bad[:, back] *= f
+            bads.append(bad.reshape(want.shape))
+    for bad in bads:
         if within(bad, want, tol):
             raise AssertionError(f"{name}: tolerance {tol} passes a zeroed or "
-                                 f"10%-off output")
+                                 f"10%-off output, or one zeroed or 10% off "
+                                 f"in its back half of rows")
 
 
 # ------------------------------------------- paper workloads (Categories I, II)
@@ -1163,7 +1257,7 @@ def serve_phase(cfg, repeats: int = PREFILL_REPEATS, profile: bool = True,
                 plain_prefill_ms=pre_ms_p, launches=counts,
                 prefill_launches=pre_counts, peak_memory_bytes=peak,
                 paths_vs_fp32=paths, reduced_vs_cpu=reduced,
-                continuation=seq[0].tolist())
+                continuation=seq[0].tolist(), param_sums=sums)
 
 
 def param_sums(params) -> dict:
@@ -2095,6 +2189,554 @@ def reduced_vs_cpu(name: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- training
+
+def _bf16_view(g, B, S, H, D, scale=1.0):
+    """(B, H, S, D) bf16 as the model hands it over: a (B, S, H, D) tensor
+    transposed."""
+    return (torch.randn((B, S, H, D), generator=g, device="cuda") * scale
+            ).to(torch.bfloat16).transpose(1, 2)
+
+
+def sdpa_bwd_ms(q, k, v, do, causal, window, scale, reps: int = 10) -> float:
+    """Median ms of the backward pass of ``F.scaled_dot_product_attention``
+    through autograd (CUDA events around ``torch.autograd.grad``, its
+    forward recorded once), K and V repeated to the q heads as in
+    ``flash_case``: the flash backward kernel's time yardstick."""
+    from repro_torch.kernels import ref
+
+    B, H, S, _ = q.shape
+    KV, T = k.shape[1], k.shape[2]
+    qc = q.detach().contiguous().requires_grad_()
+    kr, vr = (x.detach().repeat_interleave(H // KV, dim=1).contiguous()
+              .requires_grad_() for x in (k, v))
+    if causal and not window and S == T:
+        out = F.scaled_dot_product_attention(qc, kr, vr, is_causal=True,
+                                             scale=scale)
+    elif not causal and not window:
+        out = F.scaled_dot_product_attention(qc, kr, vr, scale=scale)
+    else:
+        out = F.scaled_dot_product_attention(
+            qc, kr, vr, attn_mask=ref.attention_mask(S, T, causal, window,
+                                                     "cuda"), scale=scale)
+    doc = do.contiguous()
+
+    def run():
+        torch.autograd.grad(out, (qc, kr, vr), doc, retain_graph=True)
+    for _ in range(2):
+        run()
+    times = []
+    for _ in range(reps):
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        run()
+        t1.record()
+        t1.synchronize()
+        times.append(t0.elapsed_time(t1))
+    return statistics.median(times)
+
+
+def attention_grads_fp64(q, k, v, do, causal, window, scale) -> list:
+    """dq, dk, dv of exact softmax attention in fp64 from the same inputs,
+    by autograd, one batch element at a time: the truth the backward
+    kernel and its plain version are both measured against."""
+    from repro_torch.kernels import ref
+
+    B, H, S, _ = q.shape
+    KV, T = k.shape[1], k.shape[2]
+    mask = ref.attention_mask(S, T, causal, window, "cuda")
+    grads = []
+    for b in range(B):
+        qb, kb, vb = (x[b:b + 1].double().requires_grad_() for x in (q, k, v))
+        kr, vr = (x.repeat_interleave(H // KV, dim=1) for x in (kb, vb))
+        s = torch.einsum("bhsd,bhtd->bhst", qb * scale, kr)
+        p = torch.softmax(s.masked_fill(~mask, -math.inf), -1).nan_to_num(0.0)
+        o = torch.einsum("bhst,bhtd->bhsd", p, vr)
+        grads.append(torch.autograd.grad(o, (qb, kb, vb), do[b:b + 1].double()))
+        del qb, kb, vb, kr, vr, s, p, o
+    return [torch.cat([g[i] for g in grads]) for i in range(3)]
+
+
+def flash_bwd_case(B, H, KV, S, T, D, causal, window, tag) -> dict:
+    """One case of the flash backward kernel, inputs in the model's layout
+    (q pre-scaled, score scale 1): the forward's route (asserted) and its
+    row log-sum-exp against the plain version's; dq, dk and dv of
+    ``flash_attention_bwd`` against ``flash_attention_bwd_ref`` on the
+    same q, k, v, o, lse and dO within BWD_TOL, the tolerance's power to
+    reject a wrong output (whole, or in the back half of its rows), a
+    second call's bits against the first's; the kernel's relative L2
+    distance to the fp64 truth within PATH_RATIO of the plain version's
+    (the kernel rounds dS to bf16 as a product operand, the plain version
+    keeps it fp32); the kernel, the plain version and SDPA's backward
+    timed."""
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import ref
+
+    g = torch.Generator(device="cuda").manual_seed(S * 17 + T + D + window)
+    q = _bf16_view(g, B, S, H, D, D ** -0.5)
+    k, v = _bf16_view(g, B, T, KV, D), _bf16_view(g, B, T, KV, D)
+    do = _bf16_view(g, B, S, H, D)
+    name = (f"flash bwd {tag} (B={B} H={H} KV={KV} S={S} T={T} D={D} "
+            f"causal={int(causal)} window={window})")
+    fwd_route = kfa.route(D, torch.bfloat16)
+    before = dict(kfa.route_launches)
+    o, lse = kfa.flash_attention(q, k, v, causal, window, 1.0, return_lse=True)
+    taken = {r: n - before[r] for r, n in kfa.route_launches.items()
+             if n != before[r]}
+    if taken != {fwd_route: 1}:
+        raise AssertionError(f"{name}: forward took routes {taken}, "
+                             f"expected {fwd_route}")
+    want_o, want_lse = ref.flash_attention_ref(q, k, v, causal, window, 1.0,
+                                               return_lse=True)
+    lse_err = check_close(f"{name} lse", lse, want_lse, LSE_TOL)
+    check_discerns(f"{name} lse", want_lse, LSE_TOL)
+    check_close(f"{name} out", o, want_o, FA_TOL)
+    del want_o, want_lse
+    args = (q, k, v, o, lse, do, causal, window, 1.0)
+    n0 = kfa.bwd_launches
+    got = kfa.flash_attention_bwd(*args)
+    again = kfa.flash_attention_bwd(*args)
+    if kfa.bwd_launches - n0 != 2:
+        raise AssertionError(f"{name}: {kfa.bwd_launches - n0} backward "
+                             f"launches, expected 2")
+    want = ref.flash_attention_bwd_ref(*args)
+    torch.cuda.synchronize()
+    truth = attention_grads_fp64(q, k, v, do, causal, window, 1.0)
+    errs, l2 = {}, {}
+    for nm, got_x, again_x, want_x, true_x in zip(("dq", "dk", "dv"), got,
+                                                  again, want, truth):
+        errs[nm] = check_close(f"{name} {nm}", got_x, want_x, BWD_TOL)
+        check_discerns(f"{name} {nm}", want_x, BWD_TOL, rows=True)
+        if not torch.equal(got_x, again_x):
+            raise AssertionError(f"{name} {nm}: two calls on the same inputs "
+                                 f"differ")
+        l2[nm] = {"kernel": rel_l2(got_x, true_x),
+                  "plain": rel_l2(want_x, true_x)}
+        if not l2[nm]["kernel"] <= PATH_RATIO * l2[nm]["plain"]:
+            raise AssertionError(f"{name} {nm}: relative L2 to fp64 "
+                                 f"{l2[nm]['kernel']:.3e}, over {PATH_RATIO} "
+                                 f"x the plain version's "
+                                 f"{l2[nm]['plain']:.3e}")
+    del got, again, want, truth
+    free_memory()
+    ms = time_ms(lambda: kfa.flash_attention_bwd(*args), [()])
+    plain = time_ms(lambda: ref.flash_attention_bwd_ref(*args), [()])
+    free_memory()
+    lib = sdpa_bwd_ms(q, k, v, do, causal, window, 1.0)
+    pairs = int(ref.attention_mask(S, T, causal, window, "cuda").sum().item())
+    flops = 10.0 * B * H * pairs * D   # S again, dP, dV, dK, dQ: 2 flops a MAC
+    nbytes = 2 * (4 * B * H * S * D + 4 * B * KV * T * D) + 4 * B * H * S
+    bnd, by = bound_ms(nbytes, flops, torch.bfloat16, exps=B * H * pairs)
+    row = dict(tag=tag, B=B, H=H, KV=KV, S=S, T=T, D=D, causal=causal,
+               window=window, fwd_route=fwd_route, lse_max_abs_err=lse_err,
+               max_abs_err=max(errs.values()), errs=errs, rel_l2_fp64=l2,
+               ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bnd, bound_by=by,
+               tflops=flops / ms / 1e9)
+    print(f"flash bwd {tag:>16} B={B} H={H} KV={KV} S={S} T={T} D={D} "
+          f"causal={int(causal)} window={window} fwd route={fwd_route} lse "
+          f"err={lse_err:.2e}; dq {errs['dq']:.2e} dk {errs['dk']:.2e} dv "
+          f"{errs['dv']:.2e}; rel L2 to fp64 kernel/plain "
+          + " ".join(f"{nm} {r['kernel']:.3e}/{r['plain']:.3e}"
+                     for nm, r in l2.items())
+          + f"; kernel {ms:.4f} ms ({row['tflops']:.0f} TFLOP/s) "
+          f"plain {plain:.4f}  sdpa bwd {lib:.4f}  bound {bnd:.4f} ({by})",
+          flush=True)
+    del q, k, v, o, lse, do, args
+    free_memory()
+    return row
+
+
+def flash_bwd_phase() -> list[dict]:
+    """Phase (a): the backward kernel at BWD_CASES."""
+    return [flash_bwd_case(*c) for c in BWD_CASES]
+
+
+def train_matmul_phase(cfg, mb_tokens: int) -> list[dict]:
+    """The matmul kernel at the training shapes of one microbatch of
+    ``mb_tokens`` tokens: for each projection of a layer its forward
+    product C = A W, dA = dC W^T (W^T made row-major: a weight's bytes)
+    and dW = A^T dC (A^T made row-major: M x K), and for the tied head's
+    chunk (CE_CHUNK rows a sequence) C = A E^T read in place (mma_sync),
+    dA = dC E and dE = dC^T A; each beside its plain version and
+    ``torch.matmul`` of the same product, with the transposes timed on
+    their own."""
+    from repro_torch.kernels import matmul as kmm
+    from repro_torch.kernels import ref
+    from repro_torch.launch.steps import CE_CHUNK
+
+    def mm(x, y, bt=False):
+        return kmm.matmul(x, y, b_transposed=bt)
+
+    def t(x):
+        return x.t().contiguous()
+
+    rows = []
+    chunk = mb_tokens // TRAIN_SEQ * min(CE_CHUNK, TRAIN_SEQ)
+    shapes = [(tag, mb_tokens, K, N, per * cfg.n_layers)
+              for tag, K, N, per in projections(cfg)]
+    shapes.append(("lm head chunk", chunk, cfg.d_model, cfg.padded_vocab,
+                   math.ceil(TRAIN_SEQ / CE_CHUNK)))
+    for tag, M, K, N, calls in shapes:
+        g = torch.Generator(device="cuda").manual_seed(M + K + N)
+        a = torch.randn((M, K), generator=g, device="cuda").to(torch.bfloat16)
+        dc = torch.randn((M, N), generator=g, device="cuda").to(torch.bfloat16)
+        head = tag == "lm head chunk"
+        w = (torch.randn((N, K) if head else (K, N), generator=g,
+                         device="cuda") * 0.02).to(torch.bfloat16)
+        if head:   # C = A E^T; dA = dC E; dE = dC^T A
+            prods = {"fwd": ((a, w, True), lambda: torch.matmul(a, w.t())),
+                     "dA": ((dc, w, False), lambda: torch.matmul(dc, w)),
+                     "dW": ((t(dc), a, False), lambda: torch.matmul(dc.t(), a))}
+            trans = [dc]
+        else:      # C = A W; dA = dC W^T; dW = A^T dC
+            prods = {"fwd": ((a, w, False), lambda: torch.matmul(a, w)),
+                     "dA": ((dc, t(w), False), lambda: torch.matmul(dc, w.t())),
+                     "dW": ((t(a), dc, False), lambda: torch.matmul(a.t(), dc))}
+            trans = [w, a]
+        row = dict(tag=tag, M=M, K=K, N=N, calls_per_microbatch=calls)
+        for name, ((x, y, bt), lib) in prods.items():
+            want = kmm.route(x.shape[0], y.shape[0] if bt else y.shape[1],
+                             x.shape[1], bt, x.dtype,
+                             (x.data_ptr(), y.data_ptr(), 0))
+            row[name] = dict(route=want, ms=time_ms(lambda: mm(x, y, bt), [()]),
+                             plain_ms=time_ms(lambda: ref.matmul_ref(x, y, bt),
+                                              [()]),
+                             library_ms=time_ms(lib, [()]))
+        row["transpose_ms"] = sum(time_ms(lambda x=x: t(x), [()]) for x in trans)
+        nbytes = 2 * (M * K + K * N + M * N)
+        row["bound_ms"] = bound_ms(nbytes, 2.0 * M * N * K, torch.bfloat16)[0]
+        print(f"train matmul {tag:>14} M={M:<5d} K={K:<5d} N={N:<6d} "
+              + "  ".join(f"{n} {r['route']} {r['ms']:.4f} ms (plain "
+                          f"{r['plain_ms']:.4f}, torch.matmul "
+                          f"{r['library_ms']:.4f})" for n, r in
+                          ((n, row[n]) for n in prods))
+              + f"  transposes {row['transpose_ms']:.4f} ms  bound "
+              f"{row['bound_ms']:.4f} ms a product", flush=True)
+        rows.append(row)
+        del a, dc, w, prods, trans
+        free_memory()
+    return rows
+
+
+def train_counts(cfg, microbatches: int) -> dict:
+    """Launches of one train step by kernel and route, read off the code:
+    a microbatch's forward runs every projection and the head's chunks
+    (C = A E^T on mma_sync), the recompute runs them again (every layer
+    sits in a period), and the backward pass takes two products a
+    forward product, on wgmma; flash runs forward twice and backward
+    once a layer."""
+    from repro_torch.launch.steps import CE_CHUNK
+
+    per_layer = sum(n for _, _, _, n in projections(cfg))
+    chunks = math.ceil(TRAIN_SEQ / CE_CHUNK)
+    fwd = cfg.n_layers * per_layer + chunks
+    return dict(
+        matmul={"wgmma": microbatches * (4 * fwd - 2 * chunks),
+                "mma_sync": microbatches * 2 * chunks},
+        flash_attention={"wgmma": microbatches * 2 * cfg.n_layers},
+        flash_attention_bwd={"mma_sync": microbatches * cfg.n_layers})
+
+
+def _reset_counts() -> None:
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import matmul as kmm
+
+    for m in (kmm, kfa):
+        m.launches = 0
+        m.route_launches.update(dict.fromkeys(m.ROUTES, 0))
+    kfa.bwd_launches = 0
+    kfa.bwd_route_launches.update(dict.fromkeys(kfa.BWD_ROUTES, 0))
+
+
+def _read_counts() -> dict:
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import matmul as kmm
+
+    nonzero = lambda d: {r: n for r, n in d.items() if n}  # noqa: E731
+    return dict(matmul=nonzero(kmm.route_launches),
+                flash_attention=nonzero(kfa.route_launches),
+                flash_attention_bwd=nonzero(kfa.bwd_route_launches))
+
+
+def train_paths(cfg, params, toks, labs) -> dict:
+    """Phase (b): one microbatch's loss and grads through the kernels
+    (impl="auto") and through the plain path (impl="torch"), both bf16,
+    each against the plain path in fp32, on ``cfg`` cut to its first
+    TRAIN_PATHS_LAYERS layers (full width). Every leaf's grad from the
+    kernel path must be within PATH_RATIO of the plain path's relative L2
+    distance to fp32 (``compare_paths``' rule)."""
+    from repro_torch.bridge import leaves, tree_map
+    from repro_torch.launch.steps import value_and_grad
+
+    cut_cfg, cut = depth_cut(cfg, params, TRAIN_PATHS_LAYERS)
+    runs = {}
+    for name, p, impl in (("fp32", tree_map(lambda x: x.float(), cut), "torch"),
+                          ("plain", cut, "torch"), ("kernel", cut, "auto")):
+        loss, grads = value_and_grad(p, cut_cfg, toks, labs, None, impl)
+        runs[name] = (loss.item(), dict(leaves(grads)))
+        del grads, p
+        free_memory()
+    ref32 = runs["fp32"][1]
+    leaf_rows = {path: dict(kernel=rel_l2(runs["kernel"][1][path], g32),
+                            plain=rel_l2(runs["plain"][1][path], g32))
+                 for path, g32 in ref32.items()}
+    losses = {n: r[0] for n, r in runs.items()}
+    worst = max(leaf_rows, key=lambda p: leaf_rows[p]["kernel"]
+                / max(leaf_rows[p]["plain"], 1e-30))
+    print(f"train paths {cfg.name}, first {TRAIN_PATHS_LAYERS} of "
+          f"{cfg.n_layers} layers, one microbatch {tuple(toks.shape)}: loss "
+          f"fp32 {losses['fp32']:.6f}, plain {losses['plain']:.6f}, kernel "
+          f"{losses['kernel']:.6f}; grads' relative L2 to fp32 over "
+          f"{len(leaf_rows)} leaves: kernel at most "
+          f"{max(r['kernel'] for r in leaf_rows.values()):.3e}, plain at most "
+          f"{max(r['plain'] for r in leaf_rows.values()):.3e}; largest ratio "
+          f"{worst}: kernel {leaf_rows[worst]['kernel']:.3e} against plain "
+          f"{leaf_rows[worst]['plain']:.3e}", flush=True)
+    for path, r in leaf_rows.items():
+        if not math.isfinite(r["kernel"]) or r["kernel"] > PATH_RATIO * r["plain"]:
+            raise AssertionError(f"train paths: the kernel path's grad of "
+                                 f"{path} is farther from fp32 than "
+                                 f"{PATH_RATIO} x the plain path's: {r}")
+    del runs
+    free_memory()
+    return dict(losses=losses, leaves=leaf_rows)
+
+
+def reduced_train_vs_cpu(name: str) -> dict:
+    """Phase (c): one train step (AdamW, microbatches 1, batch 2 x 64) of
+    the reduced config of ``name`` on the card through the kernels against
+    the plain path on the CPU, same params and batch; loss and grad norm
+    within REDUCED_TRAIN_TOL relative. A VLM or an encoder-decoder takes
+    the launcher's context with its gates at REDUCED_GATE; MoE layers
+    replay the CPU's routing (``RouteTape``: the recompute replays it
+    again in the same order)."""
+    from repro_torch.bridge import init_params, tree_map
+    from repro_torch.configs import get_reduced
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch import serve
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import OptConfig, adamw_init
+
+    cfg = get_reduced(name)
+    p_cpu = init_params(cfg, seed=0, device="cpu")
+    ctx = serve.context(cfg, 2, "cpu")
+    if ctx is not None:
+        p_cpu = with_gates(p_cpu, REDUCED_GATE)
+    b = SyntheticLM(vocab=cfg.vocab, seed=0).batch(0, 0, 2, 64)
+    opt_cfg = OptConfig(warmup_steps=1, total_steps=LAUNCHER_TRAIN_STEPS)
+    step = make_train_step(cfg, opt_cfg, microbatches=1)
+    out = {}
+    tape = RouteTape() if cfg.n_experts else None
+    with tape or contextlib.nullcontext():
+        for dev in ("cpu", "cuda"):
+            if tape:
+                tape.play(None if dev == "cpu" else "card")
+            p = tree_map(lambda x: x.to(dev), p_cpu)
+            batch = {"tokens": torch.from_numpy(b["tokens"]).to(dev),
+                     "labels": torch.from_numpy(b["labels"]).to(dev)}
+            if ctx is not None:
+                batch["ctx"] = ctx.to(dev)
+            _, _, m = step(p, adamw_init(p), batch)
+            out[dev] = dict(loss=float(m["loss"]),
+                            grad_norm=float(m["grad_norm"]))
+    rel = {k: abs(out["cuda"][k] - out["cpu"][k]) / abs(out["cpu"][k])
+           for k in ("loss", "grad_norm")}
+    print(f"reduced train {name}, card kernels vs CPU plain: loss "
+          f"{out['cuda']['loss']:.6f} vs {out['cpu']['loss']:.6f}, grad norm "
+          f"{out['cuda']['grad_norm']:.6f} vs {out['cpu']['grad_norm']:.6f} "
+          f"(relative {rel['loss']:.2e}, {rel['grad_norm']:.2e}; tolerance "
+          f"{REDUCED_TRAIN_TOL})", flush=True)
+    if not all(math.isfinite(x) for d in out.values() for x in d.values()) \
+            or max(rel.values()) > REDUCED_TRAIN_TOL:
+        raise AssertionError(f"reduced train {name}: card {out['cuda']} and "
+                             f"CPU {out['cpu']} differ beyond "
+                             f"{REDUCED_TRAIN_TOL}")
+    return dict(out, rel=rel)
+
+
+def train_phase(served_sums: dict) -> dict:
+    """Phase (d), and (b) on its params: granite-3-2b at full width
+    trained TRAIN_STEPS steps through ``TrainSupervisor.run`` and
+    ``make_train_step`` (its TrainSettings' microbatches, AdamW), with a
+    ``CheckpointManager`` whose period exceeds the run, so that no 25 GB
+    state is written. The fresh params must equal those the serve phase
+    served (``param_sums``); every step's loss and grad norm must be
+    finite, its launches by kernel and route exactly ``train_counts``;
+    every leaf must move. One more step runs under the profiler."""
+    import tempfile
+
+    from repro_torch.bridge import init_params, leaves
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.ft import TrainSupervisor
+    from repro_torch.launch.settings import settings_for
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import OptConfig, make_optimizer
+
+    cfg = get_config(TRAIN_ARCH)
+    st = settings_for(TRAIN_ARCH)
+    mb = st.microbatches
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, seed=0, device="cuda")
+    sums = param_sums(params)
+    if sums != served_sums:
+        raise AssertionError(f"train {cfg.name}: the fresh params differ from "
+                             f"the ones its serve phase served")
+    data = SyntheticLM(vocab=cfg.vocab, seed=0)
+
+    def batch_of(step):
+        b = data.batch(step, 0, TRAIN_BATCH, TRAIN_SEQ)
+        return {k: torch.from_numpy(b[k]).to("cuda")
+                for k in ("tokens", "labels")}
+
+    first = batch_of(0)
+    paths = train_paths(cfg, params, first["tokens"][:TRAIN_BATCH // mb],
+                        first["labels"][:TRAIN_BATCH // mb])
+    opt_cfg = OptConfig(kind=st.optimizer, lr=3e-4,
+                        warmup_steps=max(TRAIN_STEPS // 10, 1),
+                        total_steps=TRAIN_STEPS)
+    opt_init, _ = make_optimizer(opt_cfg)
+    step = make_train_step(cfg, opt_cfg, microbatches=mb)
+    state = {"params": params, "opt": opt_init(params)}
+    n_params = sum(x.numel() for _, x in leaves(params))
+    del params
+    want = train_counts(cfg, mb)
+    log = []
+
+    def step_fn(i, st_):
+        batch = batch_of(i)
+        _reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p, o, m = step(st_["params"], st_["opt"], batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _read_counts()
+        row = dict(step=i, loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
+                   wall_s=wall, tok_s=TRAIN_BATCH * TRAIN_SEQ / wall,
+                   launches=counts)
+        log.append(row)
+        print(f"train {cfg.name} step {i}: loss {row['loss']:.6f} grad norm "
+              f"{row['grad_norm']:.6f} wall {wall:.3f} s ({row['tok_s']:.0f} "
+              f"tok/s); launches {counts}", flush=True)
+        if not (math.isfinite(row["loss"]) and math.isfinite(row["grad_norm"])):
+            raise AssertionError(f"train {cfg.name} step {i}: non-finite "
+                                 f"loss or grad norm: {row}")
+        if counts != want:
+            raise AssertionError(f"train {cfg.name} step {i}: launches "
+                                 f"{counts}, expected {want}")
+        return {"params": p, "opt": o}
+
+    with tempfile.TemporaryDirectory() as tmp:
+        sup = TrainSupervisor(CheckpointManager(tmp, keep=2,
+                                                every=TRAIN_STEPS + 1))
+        final, state = sup.run(state, step_fn, steps=TRAIN_STEPS)
+        if final != TRAIN_STEPS or sup.restarts or os.listdir(tmp):
+            raise AssertionError(f"train {cfg.name}: supervisor ended at "
+                                 f"{final} after {sup.restarts} restarts, "
+                                 f"checkpoints {os.listdir(tmp)}")
+    peak = torch.cuda.max_memory_allocated()
+    now = param_sums(state["params"])
+    still = [(p, i) for p in now for i, (a, b) in
+             enumerate(zip(now[p], sums[p])) if a == b]
+    if still:
+        raise AssertionError(f"train {cfg.name}: params did not move (leaf, "
+                             f"period slice): {still[:16]}")
+    batch = batch_of(TRAIN_STEPS)
+    busy, wall_p, top = profile_device(
+        lambda: step(state["params"], state["opt"], batch))
+    steady = statistics.median(r["wall_s"] for r in log[1:])
+    flops = 6.0 * n_params * TRAIN_BATCH * TRAIN_SEQ
+    print(f"train {cfg.name}: {TRAIN_STEPS} steps of {TRAIN_BATCH}x{TRAIN_SEQ} "
+          f"tokens ({mb} microbatches): step walls "
+          + ", ".join(f"{r['wall_s']:.3f}" for r in log)
+          + f" s; steady {steady:.3f} s, {TRAIN_BATCH * TRAIN_SEQ / steady:.0f} "
+          f"tok/s, {flops / steady / 1e12:.1f} TFLOP/s of 6 N D; peak memory "
+          f"{peak / 1e9:.3f} GB", flush=True)
+    print(f"profile {cfg.name} train step: device busy {busy:.2f} ms of "
+          f"{steady * 1e3:.2f} ms unprofiled ({wall_p:.2f} ms profiled): "
+          f"idle share {1 - busy / (steady * 1e3):.3f}", flush=True)
+    for name, ms, n in top:
+        print(f"    {ms:9.3f} ms  {n:5d}x  {name}", flush=True)
+    del state
+    free_memory()
+    return dict(arch=cfg.name, microbatches=mb, batch=TRAIN_BATCH,
+                seq=TRAIN_SEQ, steps=log, steady_wall_s=steady,
+                tok_s=TRAIN_BATCH * TRAIN_SEQ / steady, flops_6nd=flops,
+                n_params=n_params, peak_memory_bytes=peak,
+                profile=dict(busy_ms=busy, profiled_wall_ms=wall_p, top=top,
+                             idle_share=1 - busy / (steady * 1e3)),
+                launches_per_step=want, paths=paths)
+
+
+def launcher_train_phase() -> dict:
+    """Phase (e): ``python -m repro_torch.launch.train --arch granite-3-2b
+    --reduced --steps 8`` into a temporary ``--ckpt``, then again: the
+    second run must resume from step 8 and end with the first run's state
+    (the launcher's ``state sha256`` line)."""
+    import tempfile
+
+    outs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for _ in range(2):
+            env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+            r = subprocess.run(
+                [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+                 TRAIN_ARCH, "--reduced", "--steps", str(LAUNCHER_TRAIN_STEPS),
+                 "--ckpt", os.path.join(tmp, "ckpt")],
+                capture_output=True, text=True, timeout=600, env=env, cwd=ROOT)
+            print(r.stdout, end="", flush=True)
+            if r.returncode:
+                raise AssertionError(f"train launcher exited {r.returncode}:\n"
+                                     f"{r.stderr[-4000:]}")
+            outs.append(r.stdout)
+    digests = [next(ln.split()[-1] for ln in o.splitlines()
+                    if ln.startswith("state sha256")) for o in outs]
+    resumed = f"resumed from step {LAUNCHER_TRAIN_STEPS}"
+    if resumed in outs[0] or resumed not in outs[1]:
+        raise AssertionError(f"train launcher: the first run must start "
+                             f"fresh and the second print {resumed!r}")
+    if digests[0] != digests[1]:
+        raise AssertionError(f"train launcher: the resumed run's state "
+                             f"differs from the first run's: {digests}")
+    print(f"train launcher: second run {resumed}, state bit-equal "
+          f"(sha256 {digests[0][:16]})", flush=True)
+    return dict(digest=digests[0], out=outs)
+
+
+def train_phases(served_sums: dict) -> dict:
+    """The train phases (a) to (e), in the order (a), (c), (d) with (b),
+    (e); returns their rows."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.settings import settings_for
+
+    t0 = time.perf_counter()
+    seconds = {}
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        free_memory()
+        seconds[name] = time.perf_counter() - t
+        return out
+
+    mb = settings_for(TRAIN_ARCH).microbatches
+    bwd = timed("a", flash_bwd_phase)
+    reduced = timed("c", lambda: {n: reduced_train_vs_cpu(n)
+                                  for n in TRAIN_REDUCED})
+    mm = timed("matmul", train_matmul_phase, get_config(TRAIN_ARCH),
+               TRAIN_BATCH // mb * TRAIN_SEQ)
+    run = timed("b+d", train_phase, served_sums)
+    launcher = timed("e", launcher_train_phase)
+    print(f"train phases done in {time.perf_counter() - t0:.1f} s: "
+          + ", ".join(f"({k}) {v:.1f} s" for k, v in seconds.items()),
+          flush=True)
+    return dict(flash_bwd=bwd, reduced=reduced, matmul=mm, run=run,
+                launcher=launcher, seconds=seconds)
+
+
 def profile_device(fn):
     """(device-busy ms, profiled wall ms, top kernels) of one run of ``fn``
     under torch.profiler: the sum of the device time of every kernel."""
@@ -2185,6 +2827,14 @@ def main() -> int:
     ctxp = context_archs_phase(t_run)
     launched.append(ctxp.pop("launcher"))
     free_memory()
+    served_sums = new["served"][TRAIN_ARCH]["param_sums"]
+    for s in [served, served_m, *new["served"].values(),
+              *ctxp["served"].values()]:   # the init bits: not for the json
+        del s["param_sums"]
+    trained = train_phases(served_sums)
+    free_memory()
+    print(f"train phases done at {time.perf_counter() - t_run:.1f} s",
+          flush=True)
     work, weighted = workloads_phase()   # last: the serving phases run as before it
     free_memory()
     print(f"paper workloads phase done at {time.perf_counter() - t_run:.1f} s",
@@ -2265,6 +2915,15 @@ def main() -> int:
                       fa_rep),
             summarize(f"flash_attention@{tag}-decode", fa_dec, fa_d, fa_src,
                       fa_rep)]
+    bwd_rows = {r["tag"]: r for r in trained["flash_bwd"]}
+    step_counts = trained["run"]["steps"][-1]["launches"]
+    kernels.append(summarize(
+        "flash_attention_bwd@train", [(bwd_rows[TRAIN_ARCH],
+                                       step_counts["flash_attention_bwd"]["mma_sync"])],
+        sum(step_counts["flash_attention_bwd"].values()),
+        "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "none: no TPU kernel; the reference differentiates _attend "
+        "(src/repro/models/attention.py:116) through XLA"))
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(dict(card=card, torch=torch.__version__, matmul=mm_rows,
@@ -2273,7 +2932,7 @@ def main() -> int:
                        serve_mamba=served_m, paper_workloads=work,
                        kernels=kernels, link_bw=link, serving_rate=rates,
                        launcher=launched, sched=sched, new_archs=new,
-                       context_archs=ctxp,
+                       context_archs=ctxp, train=trained,
                        seconds=time.perf_counter() - t_run), f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(smi())

@@ -166,10 +166,11 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
                                    device=dev).mul_(scales.get(name, 0.02)))
         return w
 
-    return _unflatten({p: draw(p, s) for p, s in leaves(param_shapes(cfg))})
+    return unflatten({p: draw(p, s) for p, s in leaves(param_shapes(cfg))})
 
 
-def _unflatten(flat: dict[str, torch.Tensor]) -> dict:
+def unflatten(flat: dict[str, object]) -> dict:
+    """The nested dict of ``{path: leaf}`` (paths joined with '/')."""
     tree: dict = {}
     for path, x in flat.items():
         node = tree
@@ -185,6 +186,27 @@ def _to_torch(a: np.ndarray, device: torch.device) -> torch.Tensor:
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(device)
     return torch.from_numpy(a).to(device)
+
+
+def tree_from_numpy(tree: dict, device=None) -> dict:
+    """Any nested dict of numpy arrays (an optimizer state ``{"m", "v",
+    "step"}``, a grads tree) as torch tensors on ``device``, bit for bit:
+    bf16 arrays cross as their 16-bit patterns, the rest unchanged."""
+    dev = resolve_device(device)
+    return tree_map(lambda a: _to_torch(a, dev), tree)
+
+
+def tree_to_numpy(tree: dict, bf16_dtype=np.uint16) -> dict:
+    """Back to nested dicts of numpy arrays, bit for bit. bf16 leaves are
+    returned as ``bf16_dtype`` views of their bits: their uint16 patterns
+    by default, or pass a numpy bfloat16 type such as
+    ``ml_dtypes.bfloat16`` to get arrays the JAX package takes."""
+    def one(x: torch.Tensor) -> np.ndarray:
+        x = x.detach().cpu().contiguous()
+        if x.dtype == torch.bfloat16:
+            return x.view(torch.int16).numpy().view(bf16_dtype)
+        return x.numpy()
+    return tree_map(one, tree)
 
 
 def params_from_numpy(tree: dict, cfg: ModelConfig, device=None) -> dict:
@@ -205,17 +227,7 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device=None) -> dict:
         if tuple(a.shape) != shape or a.dtype.name != name:
             raise ValueError(f"{path}: {a.dtype.name} {tuple(a.shape)}, "
                              f"{cfg.name} needs {name} {shape}")
-    return tree_map(lambda a: _to_torch(a, dev), tree)
+    return tree_from_numpy(tree, dev)
 
 
-def params_to_numpy(params: dict, bf16_dtype=np.uint16) -> dict:
-    """Back to nested dicts of numpy arrays, bit for bit. bf16 leaves are
-    returned as ``bf16_dtype`` views of their bits: their uint16 patterns
-    by default, or pass a numpy bfloat16 type such as
-    ``ml_dtypes.bfloat16`` to get arrays the JAX package takes."""
-    def one(x: torch.Tensor) -> np.ndarray:
-        x = x.detach().cpu().contiguous()
-        if x.dtype == torch.bfloat16:
-            return x.view(torch.int16).numpy().view(bf16_dtype)
-        return x.numpy()
-    return tree_map(one, params)
+params_to_numpy = tree_to_numpy   # the name the params' callers use

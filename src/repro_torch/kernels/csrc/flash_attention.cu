@@ -51,6 +51,9 @@
 //     mma.sync m16n8k16 with P going from the S accumulators straight into
 //     A fragments; Q, K and V tiles in dynamic shared memory (3 x 64 x
 //     (D+8) bf16), loaded synchronously.
+// Both write, when given a pointer, the fp32 row log-sum-exp of the scaled
+// scores (m + log l) in the epilogue, for the backward pass
+// (csrc/flash_attention_bwd.cu); serving passes null.
 // Both skip KV tiles that the causal rule or the window masks wholly,
 // which changes no result (the Pallas kernel runs them for zeros), and
 // start with the heaviest causal q tiles.
@@ -74,7 +77,7 @@ flash_fwd_bf16(const bf16* __restrict__ Q, const bf16* __restrict__ K,
                int KV, int S, int T, long long qsb, long long qsh,
                long long qss, long long ksb, long long ksh, long long kss,
                long long vsb, long long vsh, long long vss, int causal,
-               int window, float scale) {
+               int window, float scale, float* __restrict__ L) {
   constexpr int LD = D + PAD;
   constexpr int NT = WARPS * 32;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -200,6 +203,11 @@ flash_fwd_bf16(const bf16* __restrict__ Q, const bf16* __restrict__ K,
 
   const float inv0 = 1.f / fmaxf(l[0], 1e-30f);
   const float inv1 = 1.f / fmaxf(l[1], 1e-30f);
+  if (L != nullptr && t == 0) {  // the row log-sum-exp m + log l (-inf: no key)
+    float* Lg = L + (long long)(b * H + h) * S;
+    if (row0 < S) Lg[row0] = m[0] + logf(l[0]);
+    if (row1 < S) Lg[row1] = m[1] + logf(l[1]);
+  }
   bf16* Og = O + ((long long)(b * H + h) * S) * D;
 #pragma unroll
   for (int i = 0; i < D / 8; ++i) {
@@ -217,7 +225,7 @@ template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    int B, int H, int KV, int S, int T, const long long* qs,
                    const long long* ks, const long long* vs, int causal,
-                   int window, float scale, cudaStream_t stream) {
+                   int window, float scale, float* lse, cudaStream_t stream) {
   const int smem = 3 * BQ * (D + PAD) * (int)sizeof(bf16);
   // once per instantiation, so that no attribute call falls inside a
   // CUDA-graph capture of a later launch
@@ -229,7 +237,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(o), H, KV, S, T, qs[0],
       qs[1], qs[2], ks[0], ks[1], ks[2], vs[0], vs[1], vs[2], causal, window,
-      scale);
+      scale, lse);
   return cudaGetLastError();
 }
 
@@ -331,7 +339,8 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
                 const __grid_constant__ CUtensorMap tk,
                 const __grid_constant__ CUtensorMap tv,
                 const __grid_constant__ CUtensorMap to, int H, int KV, int S,
-                int T, int causal, int window, float sl2) {
+                int T, int causal, int window, float sl2,
+                float* __restrict__ L) {
   constexpr int BQ = wg::BQ, BKV = wg::BKV, QBOX = wg::QBOX, KVBOX = wg::KVBOX;
   static_assert(BKV == 64, "S = Q K^T is one wgmma m64n64k16 a k-step");
   constexpr int STAGES = wg::stages(D), NB = D / 64, KVB = wg::kv_bytes(D);
@@ -493,6 +502,15 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     inv[r] = 1.f / fmaxf(l[r], 1e-30f);
   }
+  // the row log-sum-exp in scaled units: the scaled score is |scale| x the
+  // oriented one, so lse = |scale| m + ln l = (m asl2 + log2 l) ln 2
+  if (L != nullptr && lane % 4 == 0) {
+    float* Lg = L + (long long)(b * H + h) * S;
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      if (row0 + 8 * r < S)
+        Lg[row0 + 8 * r] = (m[r] * asl2 + log2f(l[r])) * 0.6931471805599453f;
+  }
   sm90::bar_sync(1 + w, 128);  // every warp's wgmma has done reading Q
   uint8_t* out = Qs + w * NB * QBOX;
   const int rr = row0 - r_lo, g = lane / 4;
@@ -559,7 +577,7 @@ template <int D>
 int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B,
                  int H, int KV, int S, int T, const long long* qs,
                  const long long* ks, const long long* vs, int causal,
-                 int window, float scale, cudaStream_t stream) {
+                 int window, float scale, float* lse, cudaStream_t stream) {
   if (!encode_fn()) return cudaErrorNotSupported;
   const long long os[3] = {(long long)H * S * D, (long long)S * D, D};
   CUtensorMap tq, tk, tv, to;
@@ -575,14 +593,17 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B,
   if (attr != cudaSuccess) return attr;
   const dim3 grid((S + wg::BQ - 1) / wg::BQ, B * H);
   flash_fwd_wgmma<D><<<grid, wg::THREADS, wg::smem_bytes(D), stream>>>(
-      tq, tk, tv, to, H, KV, S, T, causal, window, scale * 1.4426950408889634f);
+      tq, tk, tv, to, H, KV, S, T, causal, window, scale * 1.4426950408889634f,
+      lse);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // q: (B,H,S,D), k/v: (B,KV,T,D) given by element strides (batch, head,
-// row) with unit stride along D; o: (B,H,S,D) contiguous. `route` is the
+// row) with unit stride along D; o: (B,H,S,D) contiguous; lse: (B,H,S)
+// fp32 contiguous, the row log-sum-exp of the scaled scores for the
+// backward pass, or null to skip it (serving). `route` is the
 // caller's choice (kernels/flash_attention.py ROUTES): 0 mma_sync for D in
 // {16, 32}, 1 wgmma for D in {64, 128, 256}. Returns the cudaError_t of
 // the launch (0 on success), or -(CUresult) when a TMA tensor map cannot
@@ -592,27 +613,28 @@ extern "C" int repro_flash_attention_bf16(
     const void* q, const void* k, const void* v, void* o, int B, int H,
     int KV, int S, int T, int D, long long qsb, long long qsh, long long qss,
     long long ksb, long long ksh, long long kss, long long vsb, long long vsh,
-    long long vss, int causal, int window, float scale, int route,
+    long long vss, int causal, int window, float scale, int route, void* lse,
     void* stream) {
+  float* L = static_cast<float*>(lse);
   const long long qs[3] = {qsb, qsh, qss}, ks[3] = {ksb, ksh, kss},
                   vs[3] = {vsb, vsh, vss};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (route * 1000 + D) {
     case 16:
       return launch<16>(q, k, v, o, B, H, KV, S, T, qs, ks, vs, causal,
-                        window, scale, s);
+                        window, scale, L, s);
     case 32:
       return launch<32>(q, k, v, o, B, H, KV, S, T, qs, ks, vs, causal,
-                        window, scale, s);
+                        window, scale, L, s);
     case 1064:
       return launch_wgmma<64>(q, k, v, o, B, H, KV, S, T, qs, ks, vs, causal,
-                              window, scale, s);
+                              window, scale, L, s);
     case 1128:
       return launch_wgmma<128>(q, k, v, o, B, H, KV, S, T, qs, ks, vs,
-                               causal, window, scale, s);
+                               causal, window, scale, L, s);
     case 1256:
       return launch_wgmma<256>(q, k, v, o, B, H, KV, S, T, qs, ks, vs,
-                               causal, window, scale, s);
+                               causal, window, scale, L, s);
     default:
       return cudaErrorInvalidValue;
   }

@@ -1,4 +1,5 @@
-"""Flash-attention forward on the card, bf16, with GQA and a sliding window.
+"""Flash attention on the card, bf16, with GQA and a sliding window: the
+forward pass, and the backward pass that training runs.
 
 The kernel (``csrc/flash_attention.cu``) replaces ``_flash_kernel`` /
 ``flash_attention_pallas`` (``repro/kernels/flash_attention.py:23,71``).
@@ -7,12 +8,16 @@ Pallas kernel computes, including its top-left causal rule. A tensor on the
 CPU takes the plain version (``ref.flash_attention_ref``); a CUDA tensor
 launches the kernel or raises. ``route`` picks one of the kernel's two
 routes from the head dim and the dtype before the launch; ``launches``
-counts kernel launches and ``route_launches`` counts them by route.
+counts kernel launches and ``route_launches`` counts them by route. With
+``return_lse`` the forward also writes the row log-sum-exp, from which
+``flash_attention_bwd`` (``csrc/flash_attention_bwd.cu``, counted by
+``bwd_launches`` and ``bwd_route_launches``) computes dq, dk and dv.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -32,8 +37,15 @@ SMEM_LIMIT = 232448
 
 launches = 0
 route_launches = dict.fromkeys(ROUTES, 0)
+# the backward kernel (csrc/flash_attention_bwd.cu): one route, mma_sync,
+# for every D in HEAD_DIMS; a call's three launches (Delta, dK/dV, dQ)
+# count once
+BWD_ROUTES = ("mma_sync",)
+bwd_launches = 0
+bwd_route_launches = dict.fromkeys(BWD_ROUTES, 0)
 
 _fn = None
+_bwd_fn = None
 
 
 def _kernel():
@@ -42,10 +54,23 @@ def _kernel():
         fn = build.load("flash_attention").repro_flash_attention_bf16
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
                        + [ctypes.c_longlong] * 9 + [ctypes.c_int] * 2
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
+                          ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
+
+
+def _bwd_kernel():
+    global _bwd_fn
+    if _bwd_fn is None:
+        fn = build.load("flash_attention_bwd").repro_flash_attention_bwd_bf16
+        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
+                       + [ctypes.c_longlong] * 15 + [ctypes.c_int] * 2
+                       + [ctypes.c_float, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _bwd_fn = fn
+    return _bwd_fn
 
 
 def route(D: int, dtype: torch.dtype) -> str:
@@ -104,32 +129,100 @@ def check_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, window: int = 0,
-                    scale: float | None = None) -> torch.Tensor:
+                    scale: float | None = None, return_lse: bool = False):
     """q: (B,H,S,D); k, v: (B,KV,T,D), H % KV == 0 -> (B,H,S,D) contiguous.
     q, k and v may be strided views (e.g. a (B,S,H,D) tensor transposed),
-    as long as D is the unit-stride dim. ``scale`` defaults to D^-0.5."""
+    as long as D is the unit-stride dim. ``scale`` defaults to D^-0.5.
+    With ``return_lse`` also the fp32 row log-sum-exp (B,H,S) of the scaled
+    scores, which the backward pass (``flash_attention_bwd``) reads."""
     global launches
     if q.device.type == "cpu" and k.device.type == "cpu" \
             and v.device.type == "cpu":
-        return ref.flash_attention_ref(q, k, v, causal, window, scale)
+        return ref.flash_attention_ref(q, k, v, causal, window, scale,
+                                       return_lse)
     if not all(x.is_cuda and x.device == q.device for x in (q, k, v)):
         raise ValueError("flash_attention: q, k, v must be on one CUDA device")
     B, H, KV, S, T, D = check_operands(q, k, v, window)
     out = torch.empty((B, H, S, D), dtype=q.dtype, device=q.device)
-    if S == 0:
-        return out
-    if T == 0:
-        return out.zero_()
+    lse = (torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+           if return_lse else None)
+    if S == 0 or T == 0:
+        if T == 0:
+            out.zero_()
+            if lse is not None:
+                lse.fill_(-math.inf)
+        return (out, lse) if return_lse else out
     scale = D ** -0.5 if scale is None else float(scale)
     which = route(D, q.dtype)
     err = _kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                     B, H, KV, S, T, D, *q.stride()[:3], *k.stride()[:3],
                     *v.stride()[:3], int(causal), int(window), scale,
                     ROUTES.index(which),
+                    None if lse is None else lse.data_ptr(),
                     torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"flash_attention kernel ({which} route) launch "
                            f"failed: error {err}")
     launches += 1
     route_launches[which] += 1
-    return out
+    return (out, lse) if return_lse else out
+
+
+def _aligned(x: torch.Tensor) -> torch.Tensor:
+    """``x`` itself if the kernel can read it in place (unit stride along
+    D, 16-byte aligned rows), else a contiguous copy: autograd may hand
+    the backward pass a gradient of any layout."""
+    if x.stride(-1) == 1 and x.data_ptr() % 16 == 0 and \
+            not any(s % 8 for s in x.stride()[:3]):
+        return x
+    return x.contiguous()
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                        causal: bool = True, window: int = 0,
+                        scale: float | None = None):
+    """The backward pass of ``flash_attention`` -> (dq, dk, dv): q, o, do
+    (B,H,S,D), k, v (B,KV,T,D) as the forward took them, ``lse`` the
+    forward's (B,H,S) fp32 row log-sum-exp. Gradients come out
+    contiguous in bf16, dk and dv summed over each KV head's q heads. A
+    tensor on the CPU takes ``ref.flash_attention_bwd_ref``; a CUDA tensor
+    launches the kernel (csrc/flash_attention_bwd.cu) or raises. The
+    kernel uses no atomics: two calls give the same bits."""
+    global bwd_launches
+    ts = (q, k, v, o, lse, do)
+    if all(x.device.type == "cpu" for x in ts):
+        return ref.flash_attention_bwd_ref(q, k, v, o, lse, do, causal,
+                                           window, scale)
+    if not all(x.is_cuda and x.device == q.device for x in ts):
+        raise ValueError("flash_attention_bwd: every operand must be on one "
+                         "CUDA device")
+    B, H, KV, S, T, D = check_operands(q, k, v, window)
+    if o.shape != q.shape or do.shape != q.shape or \
+            o.dtype != q.dtype or do.dtype != q.dtype:
+        raise ValueError(f"flash_attention_bwd: o {tuple(o.shape)} {o.dtype} "
+                         f"and do {tuple(do.shape)} {do.dtype} must match q "
+                         f"{tuple(q.shape)} {q.dtype}")
+    if lse.shape != (B, H, S) or lse.dtype != torch.float32:
+        raise ValueError(f"flash_attention_bwd: lse must be fp32 {(B, H, S)}, "
+                         f"got {lse.dtype} {tuple(lse.shape)}")
+    o, do, lse = _aligned(o), _aligned(do), lse.contiguous()
+    dq = torch.empty((B, H, S, D), dtype=q.dtype, device=q.device)
+    dk = torch.empty((B, KV, T, D), dtype=k.dtype, device=q.device)
+    dv = torch.empty((B, KV, T, D), dtype=v.dtype, device=q.device)
+    if S == 0 or T == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    scale = D ** -0.5 if scale is None else float(scale)
+    err = _bwd_kernel()(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), B, H, KV, S, T, D, *q.stride()[:3], *k.stride()[:3],
+        *v.stride()[:3], *o.stride()[:3], *do.stride()[:3], int(causal),
+        int(window), scale, torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"flash_attention_bwd kernel launch failed: "
+                           f"error {err}")
+    bwd_launches += 1
+    bwd_route_launches["mma_sync"] += 1
+    return dq, dk, dv

@@ -54,24 +54,66 @@ def attention_mask(S: int, T: int, causal: bool, window: int,
     return mask
 
 
-def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        causal: bool = True, window: int = 0,
-                        scale: float | None = None) -> torch.Tensor:
-    """q: (B,H,S,D); k, v: (B,KV,T,D) with H % KV == 0 -> (B,H,S,D).
-    Scores q.k * scale (D^-0.5 by default) in fp32."""
+def _scores(q, k, causal, window, scale):
+    """fp32 scores q.k * scale as (B,KV,G,S,T), masked to NEG_INF, and the
+    mask."""
     B, H, S, D = q.shape
     KV, T = k.shape[1], k.shape[2]
-    scale = D ** -0.5 if scale is None else scale
     qg = q.reshape(B, KV, H // KV, S, D).float() * scale
     s = torch.einsum("bkgsd,bktd->bkgst", qg, k.float())
     mask = attention_mask(S, T, causal, window, q.device)
-    s = torch.where(mask, s, NEG_INF)
+    return torch.where(mask, s, NEG_INF), mask
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True, window: int = 0,
+                        scale: float | None = None, return_lse: bool = False):
+    """q: (B,H,S,D); k, v: (B,KV,T,D) with H % KV == 0 -> (B,H,S,D).
+    Scores q.k * scale (D^-0.5 by default) in fp32. With ``return_lse``
+    also the fp32 row log-sum-exp of the scaled scores, (B,H,S): m + log l,
+    -inf for a row that sees no key."""
+    B, H, S, D = q.shape
+    scale = D ** -0.5 if scale is None else scale
+    s, mask = _scores(q, k, causal, window, scale)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.where(mask, torch.exp(s - m), 0.0)
     l = p.sum(dim=-1, keepdim=True)
     acc = torch.einsum("bkgst,bktd->bkgsd", p.to(v.dtype).float(), v.float())
-    o = acc / l.clamp_min(1e-30)
-    return o.reshape(B, H, S, D).to(q.dtype)
+    o = (acc / l.clamp_min(1e-30)).reshape(B, H, S, D).to(q.dtype)
+    if not return_lse:
+        return o
+    return o, (m + torch.log(l)).reshape(B, H, S)
+
+
+def flash_attention_bwd_ref(q, k, v, o, lse, do, causal: bool = True,
+                            window: int = 0, scale: float | None = None):
+    """The backward pass of ``flash_attention_ref`` from its output ``o``
+    and row log-sum-exp ``lse``, in fp32 (FlashAttention-2's form): with
+    P = exp(s - lse) on the visible pairs,
+
+        dV = P^T dO  (P rounded to V's dtype, as the forward rounds it),
+        Delta = rowsum(dO * O),  dS = P * (dO V^T - Delta),
+        dQ = scale dS K,  dK = scale dS^T Q,
+
+    dK and dV summed over the G q heads of a KV head. Returns (dq, dk, dv)
+    in the dtypes of q, k and v."""
+    B, H, S, D = q.shape
+    KV = k.shape[1]
+    G = H // KV
+    scale = D ** -0.5 if scale is None else scale
+    s, mask = _scores(q, k, causal, window, scale)
+    lse5 = lse.reshape(B, KV, G, S, 1).float()
+    p = torch.where(mask, torch.exp(s - lse5), 0.0)
+    do5 = do.reshape(B, KV, G, S, D).float()
+    dv = torch.einsum("bkgst,bkgsd->bktd", p.to(v.dtype).float(), do5)
+    delta = (do5 * o.reshape(B, KV, G, S, D).float()).sum(-1, keepdim=True)
+    dp = torch.einsum("bkgsd,bktd->bkgst", do5, v.float())
+    ds = p * (dp - delta)
+    dq = scale * torch.einsum("bkgst,bktd->bkgsd", ds, k.float())
+    dk = scale * torch.einsum("bkgst,bkgsd->bktd", ds,
+                              q.reshape(B, KV, G, S, D).float())
+    return (dq.reshape(B, H, S, D).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
 def mamba_scan_ref(dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,

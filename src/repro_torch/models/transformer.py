@@ -14,6 +14,7 @@ Mamba layers; Mamba layers with an FFN raise ``NotImplementedError``.
 from __future__ import annotations
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.kernels import ops
 from repro_torch.models import attention as attn_lib
@@ -137,27 +138,61 @@ def _lm_head(params: dict, cfg: ModelConfig, x: torch.Tensor,
     return logits
 
 
-def forward_with_aux(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
-                     ctx: torch.Tensor | None = None, impl: str = "auto"
-                     ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Teacher-forced full-sequence pass -> ((B, S, padded_vocab) logits,
-    the MoE aux loss summed over layers over max(1, MoE layers)), as the
-    reference's ``forward`` returns them (``transformer.py:200-246``).
-    ``ctx`` is what cross-attention layers attend to: image patches, or
-    the output of ``encode``."""
+def forward_hidden(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+                   ctx: torch.Tensor | None = None, impl: str = "auto"
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Teacher-forced full-sequence pass up to the final norm -> ((B, S,
+    d_model) hidden states, the MoE aux loss summed over layers over
+    max(1, MoE layers)): the reference's ``forward(..., return_hidden=
+    True)`` (``transformer.py:200-246``), whose hidden states the train
+    loss folds into a chunked LM head. ``ctx`` is what cross-attention
+    layers attend to: image patches, or the output of ``encode``.
+
+    With ``cfg.remat == "full"`` and grad enabled, each whole period of
+    layers runs under ``torch.utils.checkpoint`` (the reference's
+    ``jax.checkpoint`` of its period body, ``:222-223``): only its input
+    is kept, and its layers run again in the backward pass; remainder
+    layers are not recomputed, as in the reference. A stacked leaf under
+    ``periods/`` may be given as the sequence of its period slices (the
+    train step does, so that each period's gradient is a tensor of its
+    own)."""
     B, S = tokens.shape
     x = embed_apply(params["embed"], tokens, cfg.embed_scale, cfg.d_model)
     positions = torch.arange(S, dtype=torch.int32, device=x.device)[None, :]
     aux = x.new_zeros((), dtype=torch.float32)
-    for key, i, mixer, ffn in _slots(cfg):
-        x, _, a = _apply_layer(_layer_params(params, key, i), cfg, x, mixer,
-                               ffn, positions=positions, ctx=ctx, cache=None,
-                               impl=impl)
-        if a is not None:
-            aux = aux + a
+
+    def run(x, aux, slots):
+        for key, i, mixer, ffn in slots:
+            x, _, a = _apply_layer(_layer_params(params, key, i), cfg, x,
+                                   mixer, ffn, positions=positions, ctx=ctx,
+                                   cache=None, impl=impl)
+            if a is not None:
+                aux = aux + a
+        return x, aux
+
+    slots = list(_slots(cfg))
+    per = len(cfg.layer_pattern)
+    remat = cfg.remat == "full" and torch.is_grad_enabled()
+    for i in range(cfg.n_periods):
+        period = slots[i * per:(i + 1) * per]
+        if remat:
+            x, aux = torch.utils.checkpoint.checkpoint(
+                run, x, aux, period, use_reentrant=False)
+        else:
+            x, aux = run(x, aux, period)
+    x, aux = run(x, aux, slots[cfg.n_periods * per:])
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     n_moe = max(1, sum(1 for _, f in cfg.layer_kinds() if f == MOE))
-    return _lm_head(params, cfg, x, impl), aux / n_moe
+    return x, aux / n_moe
+
+
+def forward_with_aux(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+                     ctx: torch.Tensor | None = None, impl: str = "auto"
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Teacher-forced full-sequence pass -> ((B, S, padded_vocab) logits,
+    the MoE aux loss), as the reference's ``forward`` returns them."""
+    x, aux = forward_hidden(params, cfg, tokens, ctx, impl)
+    return _lm_head(params, cfg, x, impl), aux
 
 
 def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
