@@ -2,6 +2,8 @@
 """Drive the PyTorch port (``src/repro_torch``) on one NVIDIA H100.
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
+    python3 chip_smoke.py --only flash-bwd   # build, then phase 8(a) alone,
+                                             # each launch profiled
 
 1. Prints the card's name and power limit, then builds the six CUDA
    kernels from ``src/repro_torch/kernels/csrc`` with nvcc (sm_90a), one
@@ -128,8 +130,11 @@
    granite-3-2b's microbatch (32:8, D 64, causal), gemma3-1b's local
    layers (4:1, D 256, window 512), the VLM's cross-attention (D 128, S
    1024 against T 6 404), the reduced D = 16, and edges (D 32 with S < T
-   and a window, S > T, non-causal with a window): the forward route's
-   row log-sum-exp against the plain version's, dq, dk and dv against
+   and a window, S > T, non-causal with a window, S = T = 6 404 causal
+   with a window): the route each case takes (``bwd_route``: wgmma for
+   D >= 64, mma_sync for D = 16 and 32) asserted and printed, the forward
+   route's row log-sum-exp against the plain version's, dq, dk and dv
+   against
    ``flash_attention_bwd_ref`` on the same inputs (BWD_TOL: an atol a
    row of dq, a key of dk and dv), a second call's bits against the
    first's, the tolerances' power to reject a zeroed and a 10 %-off
@@ -331,18 +336,21 @@ REDUCED_TRAIN_TOL = 2e-2
 # the reduced non-Mamba configs reduced_vs_cpu covers: one train step each
 TRAIN_REDUCED = ("gemma3-1b", MOE_ARCH, "granite-3-2b", "chatglm3-6b",
                  "granite-20b", "mixtral-8x7b", VLM_ARCH, ENCDEC_ARCH)
-# the backward kernel's cases: granite-3-2b's microbatch (32:8, D 64,
-# causal), gemma3-1b's local layers (4:1, D 256, window 512), the VLM's
-# cross-attention (32:8, D 128, S 1024 against T 6 404), the reduced
-# granite-3-2b (D 16), and edges: D 32 with S < T and a window, S > T,
-# non-causal with a window
-BWD_CASES = ((2, 32, 8, 1024, 1024, 64, True, 0, "granite-3-2b"),
-             (2, 4, 1, 1024, 1024, 256, True, 512, "gemma3-1b local"),
-             (2, 32, 8, 1024, 6404, 128, False, 0, "vlm cross"),
-             (2, 4, 2, 100, 100, 16, True, 0, "reduced"),
-             (1, 4, 2, 100, 150, 32, True, 40, "d32 S<T window"),
-             (1, 4, 1, 300, 200, 128, True, 0, "S>T"),
-             (1, 2, 2, 200, 300, 256, False, 100, "nc window"))
+# the backward kernel's cases and the route each takes: granite-3-2b's
+# microbatch (32:8, D 64, causal), gemma3-1b's local layers (4:1, D 256,
+# window 512), the VLM's cross-attention (32:8, D 128, S 1024 against T
+# 6 404), the reduced granite-3-2b (D 16), and edges: D 32 with S < T and
+# a window, S > T, non-causal with a window, and a ragged S = T = 6 404,
+# causal with a window, where the causal rule hides a prefix and the
+# window a suffix of each block's tiles
+BWD_CASES = ((2, 32, 8, 1024, 1024, 64, True, 0, "granite-3-2b", "wgmma"),
+             (2, 4, 1, 1024, 1024, 256, True, 512, "gemma3-1b local", "wgmma"),
+             (2, 32, 8, 1024, 6404, 128, False, 0, "vlm cross", "wgmma"),
+             (2, 4, 2, 100, 100, 16, True, 0, "reduced", "mma_sync"),
+             (1, 4, 2, 100, 150, 32, True, 40, "d32 S<T window", "mma_sync"),
+             (1, 4, 1, 300, 200, 128, True, 0, "S>T", "wgmma"),
+             (1, 2, 2, 200, 300, 256, False, 100, "nc window", "wgmma"),
+             (1, 8, 2, 6404, 6404, 128, True, 1000, "T6404 window", "wgmma"))
 
 
 def smi() -> str:
@@ -2258,10 +2266,12 @@ def attention_grads_fp64(q, k, v, do, causal, window, scale) -> list:
     return [torch.cat([g[i] for g in grads]) for i in range(3)]
 
 
-def flash_bwd_case(B, H, KV, S, T, D, causal, window, tag) -> dict:
+def flash_bwd_case(B, H, KV, S, T, D, causal, window, tag, want_route,
+                   split: bool = False) -> dict:
     """One case of the flash backward kernel, inputs in the model's layout
     (q pre-scaled, score scale 1): the forward's route (asserted) and its
-    row log-sum-exp against the plain version's; dq, dk and dv of
+    row log-sum-exp against the plain version's; the backward's route
+    (``want_route``, asserted); dq, dk and dv of
     ``flash_attention_bwd`` against ``flash_attention_bwd_ref`` on the
     same q, k, v, o, lse and dO within BWD_TOL, the tolerance's power to
     reject a wrong output (whole, or in the back half of its rows), a
@@ -2269,7 +2279,8 @@ def flash_bwd_case(B, H, KV, S, T, D, causal, window, tag) -> dict:
     distance to the fp64 truth within PATH_RATIO of the plain version's
     (the kernel rounds dS to bf16 as a product operand, the plain version
     keeps it fp32); the kernel, the plain version and SDPA's backward
-    timed."""
+    timed; with ``split``, each launch's device time under the
+    profiler."""
     from repro_torch.kernels import flash_attention as kfa
     from repro_torch.kernels import ref
 
@@ -2294,12 +2305,20 @@ def flash_bwd_case(B, H, KV, S, T, D, causal, window, tag) -> dict:
     check_close(f"{name} out", o, want_o, FA_TOL)
     del want_o, want_lse
     args = (q, k, v, o, lse, do, causal, window, 1.0)
+    if kfa.bwd_route(D, torch.bfloat16) != want_route:
+        raise AssertionError(f"{name}: bwd_route picks "
+                             f"{kfa.bwd_route(D, torch.bfloat16)}, the case "
+                             f"expects {want_route}")
     n0 = kfa.bwd_launches
+    before = dict(kfa.bwd_route_launches)
     got = kfa.flash_attention_bwd(*args)
     again = kfa.flash_attention_bwd(*args)
-    if kfa.bwd_launches - n0 != 2:
+    taken = {r: n - before[r] for r, n in kfa.bwd_route_launches.items()
+             if n != before[r]}
+    if kfa.bwd_launches - n0 != 2 or taken != {want_route: 2}:
         raise AssertionError(f"{name}: {kfa.bwd_launches - n0} backward "
-                             f"launches, expected 2")
+                             f"launches on routes {taken}, expected 2 on "
+                             f"{want_route}")
     want = ref.flash_attention_bwd_ref(*args)
     torch.cuda.synchronize()
     truth = attention_grads_fp64(q, k, v, do, causal, window, 1.0)
@@ -2324,32 +2343,43 @@ def flash_bwd_case(B, H, KV, S, T, D, causal, window, tag) -> dict:
     plain = time_ms(lambda: ref.flash_attention_bwd_ref(*args), [()])
     free_memory()
     lib = sdpa_bwd_ms(q, k, v, do, causal, window, 1.0)
+    if split:   # the call's device time by launch: Delta, then dK/dV and
+        # dQ in one wgmma launch or in two mma_sync launches
+        _, _, top = profile_device(lambda: kfa.flash_attention_bwd(*args))
+        split = {part: sum(ms for nm, ms, _ in top if key in nm)
+                 for part, key in (("delta", "flash_bwd_delta"),
+                                   ("dkv+dq", "flash_bwd_wgmma"),
+                                   ("dkv", "flash_bwd_dkv<"),
+                                   ("dq", "flash_bwd_dq<"))}
+        split = {part: ms for part, ms in split.items() if ms}
     pairs = int(ref.attention_mask(S, T, causal, window, "cuda").sum().item())
     flops = 10.0 * B * H * pairs * D   # S again, dP, dV, dK, dQ: 2 flops a MAC
     nbytes = 2 * (4 * B * H * S * D + 4 * B * KV * T * D) + 4 * B * H * S
     bnd, by = bound_ms(nbytes, flops, torch.bfloat16, exps=B * H * pairs)
     row = dict(tag=tag, B=B, H=H, KV=KV, S=S, T=T, D=D, causal=causal,
-               window=window, fwd_route=fwd_route, lse_max_abs_err=lse_err,
+               window=window, fwd_route=fwd_route, route=want_route,
+               lse_max_abs_err=lse_err,
                max_abs_err=max(errs.values()), errs=errs, rel_l2_fp64=l2,
                ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bnd, bound_by=by,
-               tflops=flops / ms / 1e9)
+               tflops=flops / ms / 1e9, split_ms=split or None)
     print(f"flash bwd {tag:>16} B={B} H={H} KV={KV} S={S} T={T} D={D} "
-          f"causal={int(causal)} window={window} fwd route={fwd_route} lse "
-          f"err={lse_err:.2e}; dq {errs['dq']:.2e} dk {errs['dk']:.2e} dv "
+          f"causal={int(causal)} window={window} route={want_route} (fwd "
+          f"{fwd_route}) lse err={lse_err:.2e}; dq {errs['dq']:.2e} dk {errs['dk']:.2e} dv "
           f"{errs['dv']:.2e}; rel L2 to fp64 kernel/plain "
           + " ".join(f"{nm} {r['kernel']:.3e}/{r['plain']:.3e}"
                      for nm, r in l2.items())
           + f"; kernel {ms:.4f} ms ({row['tflops']:.0f} TFLOP/s) "
-          f"plain {plain:.4f}  sdpa bwd {lib:.4f}  bound {bnd:.4f} ({by})",
-          flush=True)
+          f"plain {plain:.4f}  sdpa bwd {lib:.4f}  bound {bnd:.4f} ({by})"
+          + ("; profiled " + " ".join(f"{k} {v:.4f}" for k, v in split.items())
+             if split else ""), flush=True)
     del q, k, v, o, lse, do, args
     free_memory()
     return row
 
 
-def flash_bwd_phase() -> list[dict]:
+def flash_bwd_phase(split: bool = False) -> list[dict]:
     """Phase (a): the backward kernel at BWD_CASES."""
-    return [flash_bwd_case(*c) for c in BWD_CASES]
+    return [flash_bwd_case(*c, split=split) for c in BWD_CASES]
 
 
 def train_matmul_phase(cfg, mb_tokens: int) -> list[dict]:
@@ -2425,7 +2455,7 @@ def train_counts(cfg, microbatches: int) -> dict:
     (C = A E^T on mma_sync), the recompute runs them again (every layer
     sits in a period), and the backward pass takes two products a
     forward product, on wgmma; flash runs forward twice and backward
-    once a layer."""
+    once a layer, both on wgmma (D = 64)."""
     from repro_torch.launch.steps import CE_CHUNK
 
     per_layer = sum(n for _, _, _, n in projections(cfg))
@@ -2435,7 +2465,7 @@ def train_counts(cfg, microbatches: int) -> dict:
         matmul={"wgmma": microbatches * (4 * fwd - 2 * chunks),
                 "mma_sync": microbatches * 2 * chunks},
         flash_attention={"wgmma": microbatches * 2 * cfg.n_layers},
-        flash_attention_bwd={"mma_sync": microbatches * cfg.n_layers})
+        flash_attention_bwd={"wgmma": microbatches * cfg.n_layers})
 
 
 def _reset_counts() -> None:
@@ -2772,7 +2802,15 @@ def summarize(name, weighted, launches, source, replaces):
         else sum(r["library_ms"] * n for r, n in weighted))
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--only", choices=("flash-bwd",),
+                    help="build the kernels and run only phase 8(a), the "
+                    "flash backward kernel's cases, with each launch's "
+                    "profiled device time (no result line)")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
               file=sys.stderr)
@@ -2789,6 +2827,9 @@ def main() -> int:
     out = build.build_all()
     print(f"build: {out} in {time.perf_counter() - t0:.1f} s", flush=True)
     print(build.ptxas_report(), flush=True)
+    if args.only == "flash-bwd":
+        flash_bwd_phase(split=True)
+        return 0
 
     t_run = time.perf_counter()
     link = link_rates()
@@ -2917,13 +2958,15 @@ def main() -> int:
                       fa_rep)]
     bwd_rows = {r["tag"]: r for r in trained["flash_bwd"]}
     step_counts = trained["run"]["steps"][-1]["launches"]
-    kernels.append(summarize(
+    bwd_routes = step_counts["flash_attention_bwd"]
+    kernels.append(dict(summarize(
         "flash_attention_bwd@train", [(bwd_rows[TRAIN_ARCH],
-                                       step_counts["flash_attention_bwd"]["mma_sync"])],
-        sum(step_counts["flash_attention_bwd"].values()),
+                                       bwd_routes["wgmma"])],
+        sum(bwd_routes.values()),
         "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
         "none: no TPU kernel; the reference differentiates _attend "
-        "(src/repro/models/attention.py:116) through XLA"))
+        "(src/repro/models/attention.py:116) through XLA"),
+        routes=bwd_routes))
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(dict(card=card, torch=torch.__version__, matmul=mm_rows,

@@ -92,13 +92,16 @@ def load(name: str) -> ctypes.CDLL:
 
 
 def ptxas_report() -> str:
-    """The register and shared-memory lines ``ptxas -v`` printed for each
-    kernel of the current build ('' for a kernel built by another run)."""
+    """The register, shared-memory and spill lines ``ptxas -v`` printed
+    for each kernel of the current build, and any warning that it
+    serialised a wgmma pipeline or set setmaxnreg aside ('' for a kernel
+    built by another run)."""
     lines = []
     for name in KERNELS:
         log = build_dir() / f"{name}.log"
         if log.exists():
             lines += [f"{name}: {ln.strip()}" for ln in log.read_text().splitlines()
                       if any(w in ln for w in ("entry function", "registers",
-                                                 "spill"))]
+                                                 "spill", "wgmma",
+                                                 "setmaxnreg"))]
     return "\n".join(lines)

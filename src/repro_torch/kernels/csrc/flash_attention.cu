@@ -59,9 +59,6 @@
 // start with the heaviest causal q tiles.
 // Not yet on the wgmma route: ping-pong of the two consumer warpgroups,
 // overlap of the softmax with the wgmma inside a warpgroup, FP8.
-#include <cuda.h>
-#include <cudaTypedefs.h>
-
 #include "mma_bf16.cuh"
 #include "sm90.cuh"
 
@@ -259,14 +256,6 @@ __host__ __device__ constexpr int smem_bytes(int d) {
 }
 }  // namespace wg
 
-// 2^x on the special-function unit (what exp2f becomes under fast math;
-// results below 2^-126 flush to 0)
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
 // The softmax of one tile of S for a consumer thread's two rows (row0 and
 // row0 + 8) in the accumulator layout of wgmma m64nNk16, and the rescale
 // of its O. Scores are oriented (NEG: negated) so that the largest is the
@@ -306,14 +295,14 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[N / 2], float (&o)[D / 
     ms[r] = m_new * sl2;
     // 1 while the row has seen no key (both NEG_INF): the difference, not
     // an FMA, whose rounding residual at NEG_INF could overflow exp2
-    alpha[r] = exp2_approx((m[r] - m_new) * sl2);
+    alpha[r] = sm90::exp2_approx((m[r] - m_new) * sl2);
     m[r] = m_new;
     l[r] *= alpha[r];
   }
 #pragma unroll
   for (int i = 0; i < N / 2; ++i) {
     const int r = (i >> 1) & 1;
-    float p = exp2_approx(fmaf(sc[i], sl2, -ms[r]));
+    float p = sm90::exp2_approx(fmaf(sc[i], sl2, -ms[r]));
     if constexpr (EDGE) p = sc[i] == NEG_INF ? 0.f : p;  // as in the Pallas kernel
     sc[i] = p;
     l[r] += p;
@@ -533,58 +522,21 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-// cuTensorMapEncodeTiled, looked up at run time (an entry point of the
-// CUDA driver API), so that the library links against the runtime only
-PFN_cuTensorMapEncodeTiled_v12000 encode_fn() {
-  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
-  if (!fn) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
-  }
-  return fn;
-}
-
-// A bf16 tensor (batch, heads, rows, D) given by element strides st =
-// (batch, head, row), unit stride along D, as a 4-D map (D, rows, heads,
-// batch) read in boxes of 64 rows x 64 columns, 128-byte swizzled, zeros
-// past the edge.
-CUresult encode_4d(CUtensorMap* map, const void* ptr, int D, int rows,
-                   int heads, int batch, const long long* st, int box_rows) {
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)rows,
-                              (cuuint64_t)heads, (cuuint64_t)batch};
-  const cuuint64_t strides[3] = {(cuuint64_t)st[2] * 2, (cuuint64_t)st[1] * 2,
-                                 (cuuint64_t)st[0] * 2};
-  const cuuint32_t box[4] = {64, (cuuint32_t)box_rows, 1, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return encode_fn()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                     const_cast<void*>(ptr), dims, strides, box, elem,
-                     CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                     CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                     CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-}
-
 // Returns a cudaError_t, or -(CUresult) when a tensor map cannot be made.
 template <int D>
 int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B,
                  int H, int KV, int S, int T, const long long* qs,
                  const long long* ks, const long long* vs, int causal,
                  int window, float scale, float* lse, cudaStream_t stream) {
-  if (!encode_fn()) return cudaErrorNotSupported;
+  if (!sm90::encode_fn()) return cudaErrorNotSupported;
   const long long os[3] = {(long long)H * S * D, (long long)S * D, D};
   CUtensorMap tq, tk, tv, to;
-  CUresult r = encode_4d(&tq, q, D, S, H, B, qs, 64);
-  if (r == CUDA_SUCCESS) r = encode_4d(&tk, k, D, T, KV, B, ks, wg::BKV);
-  if (r == CUDA_SUCCESS) r = encode_4d(&tv, v, D, T, KV, B, vs, wg::BKV);
-  if (r == CUDA_SUCCESS) r = encode_4d(&to, o, D, S, H, B, os, 64);
+  CUresult r = sm90::encode_4d(&tq, q, D, S, H, B, qs, 64);
+  if (r == CUDA_SUCCESS)
+    r = sm90::encode_4d(&tk, k, D, T, KV, B, ks, wg::BKV);
+  if (r == CUDA_SUCCESS)
+    r = sm90::encode_4d(&tv, v, D, T, KV, B, vs, wg::BKV);
+  if (r == CUDA_SUCCESS) r = sm90::encode_4d(&to, o, D, S, H, B, os, 64);
   if (r != CUDA_SUCCESS) return -static_cast<int>(r);
   // once per instantiation, outside any CUDA-graph capture of later calls
   static cudaError_t attr = cudaFuncSetAttribute(

@@ -59,9 +59,6 @@
 // with few tiles (x_proj, N = 288: 96 tiles on 132 SMs; N = 1152), whose
 // epilogue would overlap the next tile's loads, with clusters sharing A
 // and B tiles by TMA multicast.
-#include <cuda.h>
-#include <cudaTypedefs.h>
-
 #include "mma_bf16.cuh"
 #include "sm90.cuh"
 
@@ -575,26 +572,6 @@ matmul_wgmma(const __grid_constant__ CUtensorMap ta,
   }
 }
 
-// cuTensorMapEncodeTiled from the driver, found at run time so that the
-// library links against the runtime only
-PFN_cuTensorMapEncodeTiled_v12000 encode_fn() {
-  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
-  if (!fn) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
-  }
-  return fn;
-}
-
 // A 2-D row-major bf16 tensor of `rows` x `cols` read in boxes of
 // box_rows x box_cols, 128-byte swizzled, zeros past the edge.
 CUresult encode_2d(CUtensorMap* map, const void* ptr, uint64_t rows,
@@ -603,7 +580,7 @@ CUresult encode_2d(CUtensorMap* map, const void* ptr, uint64_t rows,
   const cuuint64_t strides[1] = {cols * 2};
   const cuuint32_t box[2] = {box_cols, box_rows};
   const cuuint32_t elem[2] = {1, 1};
-  return encode_fn()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+  return sm90::encode_fn()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
                      const_cast<void*>(ptr), dims, strides, box, elem,
                      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                      CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
@@ -634,7 +611,7 @@ int launch_wgmma_tile(const CUtensorMap& ta, const CUtensorMap& tb, void* c,
 int launch_wgmma(const void* a, const void* b, void* c, int M, int N, int K,
                  int tile_n, cudaStream_t s) {
   if (tile_n != 128 && tile_n != 256) return cudaErrorInvalidValue;
-  if (!encode_fn()) return cudaErrorNotSupported;
+  if (!sm90::encode_fn()) return cudaErrorNotSupported;
   CUtensorMap ta, tb;
   CUresult r = encode_2d(&ta, a, M, K, wg::BM, wg::BK);
   if (r == CUDA_SUCCESS) r = encode_2d(&tb, b, K, N, wg::BK, 64);

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks in inline PTX: mbarriers, TMA tile
-// loads and stores, warpgroup MMA (wgmma) with shared-memory descriptors
-// and with A from registers, and setmaxnreg.
+// loads and stores, bulk copies, warpgroup MMA (wgmma) with shared-memory
+// descriptors and with A from registers, setmaxnreg and ex2.approx; and,
+// on the host, the TMA tensor maps of the attention kernels.
 //
 // The wgmma descriptor (PTX ISA "matrix descriptor"; CUTLASS
 // cute/arch/mma_sm90_desc.hpp) packs, in 16-byte units:
@@ -21,6 +22,8 @@
 #pragma once
 
 #include <cuda.h>
+#include <cudaTypedefs.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace sm90 {
@@ -89,6 +92,17 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       "bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// a plain bulk copy of `bytes` (a multiple of 16; both addresses 16-byte
+// aligned) from global to shared memory, counted in bytes on `bar`
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
 }
 
@@ -259,6 +273,32 @@ __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t da,
       : "l"(da), "l"(db), "r"(accumulate), "n"(TRANS_B));
 }
 
+// the same at N = 32 (d[16])
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n32k16(float (&d)[16], uint64_t da,
+                                                uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, "
+      "%16, %17, p, 1, 1, 0, %19;\n"
+      "}\n"
+      : SM90_F8(0), SM90_F8(8)
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TRANS_B));
+}
+
+// both operands K-major, N in {32, 64}
+template <int N>
+__device__ __forceinline__ void wgmma_m64k16_ss(float (&d)[N / 2], uint64_t da,
+                                                uint64_t db, int accumulate) {
+  if constexpr (N == 32)
+    wgmma_m64n32k16<0>(d, da, db, accumulate);
+  else
+    wgmma_m64n64k16<0>(d, da, db, accumulate);
+}
+
 // D(64xN, fp32) += A(64x16, bf16) * B(16xN, bf16), A from registers, B from
 // shared memory (TRANS_B = 1 when B is N-major). Register layout of A: for
 // thread t of the warpgroup, w = t / 32, g = (t % 32) / 4, c = t % 4,
@@ -363,6 +403,54 @@ __device__ __forceinline__ void setmaxnreg_inc() {
 template <int R>
 __device__ __forceinline__ void setmaxnreg_dec() {
   asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+// 2^x on the special-function unit (what exp2f becomes under fast math;
+// results below 2^-126 flush to 0)
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// cuTensorMapEncodeTiled, looked up at run time (an entry point of the
+// CUDA driver API), so that a library links against the runtime only
+inline PFN_cuTensorMapEncodeTiled_v12000 encode_fn() {
+  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
+  }
+  return fn;
+}
+
+// A bf16 tensor (batch, heads, rows, D) given by element strides st =
+// (batch, head, row), unit stride along D, as a 4-D map (D, rows, heads,
+// batch) read in boxes of `box_rows` rows x 64 columns, 128-byte
+// swizzled, zeros past the edge (and, stored to, nothing written there).
+inline CUresult encode_4d(CUtensorMap* map, const void* ptr, int D, int rows,
+                          int heads, int batch, const long long* st,
+                          int box_rows) {
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)rows,
+                              (cuuint64_t)heads, (cuuint64_t)batch};
+  const cuuint64_t strides[3] = {(cuuint64_t)st[2] * 2, (cuuint64_t)st[1] * 2,
+                                 (cuuint64_t)st[0] * 2};
+  const cuuint32_t box[4] = {64, (cuuint32_t)box_rows, 1, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return encode_fn()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                     const_cast<void*>(ptr), dims, strides, box, elem,
+                     CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                     CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                     CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
 }  // namespace sm90

@@ -10,8 +10,9 @@ launches the kernel or raises. ``route`` picks one of the kernel's two
 routes from the head dim and the dtype before the launch; ``launches``
 counts kernel launches and ``route_launches`` counts them by route. With
 ``return_lse`` the forward also writes the row log-sum-exp, from which
-``flash_attention_bwd`` (``csrc/flash_attention_bwd.cu``, counted by
-``bwd_launches`` and ``bwd_route_launches``) computes dq, dk and dv.
+``flash_attention_bwd`` (``csrc/flash_attention_bwd.cu``, its route picked
+by ``bwd_route``, counted by ``bwd_launches`` and ``bwd_route_launches``)
+computes dq, dk and dv.
 """
 
 from __future__ import annotations
@@ -37,10 +38,10 @@ SMEM_LIMIT = 232448
 
 launches = 0
 route_launches = dict.fromkeys(ROUTES, 0)
-# the backward kernel (csrc/flash_attention_bwd.cu): one route, mma_sync,
-# for every D in HEAD_DIMS; a call's three launches (Delta, dK/dV, dQ)
-# count once
-BWD_ROUTES = ("mma_sync",)
+# the backward kernel (csrc/flash_attention_bwd.cu), the C side's route
+# numbers are the indices; a call's launches (Delta, then dK/dV and dQ:
+# one launch on wgmma, two on mma_sync) count once
+BWD_ROUTES = ("wgmma", "mma_sync")
 bwd_launches = 0
 bwd_route_launches = dict.fromkeys(BWD_ROUTES, 0)
 
@@ -67,7 +68,7 @@ def _bwd_kernel():
         fn = build.load("flash_attention_bwd").repro_flash_attention_bwd_bf16
         fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
                        + [ctypes.c_longlong] * 15 + [ctypes.c_int] * 2
-                       + [ctypes.c_float, ctypes.c_void_p])
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _bwd_fn = fn
     return _bwd_fn
@@ -94,6 +95,49 @@ def wgmma_smem_bytes(D: int) -> int:
     stages = wgmma_stages(D)
     return (WGMMA_BQ * D * 2 + 2 * stages * WGMMA_BKV * D * 2 + 1024
             + 8 * (1 + 4 * stages))
+
+
+def bwd_route(D: int, dtype: torch.dtype) -> str:
+    """The backward kernel's route for head dim ``D``: wgmma (TMA-fed
+    rings, every product a wgmma) where a row fills the 128-byte swizzle,
+    else mma_sync; the forward's rule (``route``)."""
+    return route(D, dtype)
+
+
+def bwd_wgmma_plan(D: int) -> dict:
+    """The backward wgmma route's tiles (csrc/flash_attention_bwd.cu,
+    namespace wg): the keys of a dK/dV block (at D = 256 its two consumer
+    warpgroups share 64 keys and split the columns) and its ring stages
+    of 64-row Q and dO tiles; the keys of a dQ ring stage (K and V tiles)
+    and its stages, for 128 query rows a block."""
+    return dict(dkv_keys=64 if D == 256 else 128,
+                dkv_stages=2 if D == 256 else 4,
+                dq_keys=32 if D == 256 else 64,
+                dq_stages=2 if D == 256 else 4)
+
+
+def bwd_wgmma_smem_bytes(D: int) -> dict:
+    """Shared memory of a wgmma-route backward block: its dK/dV role holds
+    K and V, the ring of Q and dO tiles and of their lse and Delta rows;
+    its dQ role Q and dO (128 rows) and the ring of K and V tiles; each
+    1024 bytes to align the swizzle atoms. A block has the larger of the
+    two and both roles' mbarriers."""
+    p = bwd_wgmma_plan(D)
+    dkv = (2 * p["dkv_keys"] * D * 2
+           + p["dkv_stages"] * (2 * 64 * D * 2 + 2 * 64 * 4) + 1024)
+    dq = (2 * WGMMA_BQ * D * 2 + p["dq_stages"] * 2 * p["dq_keys"] * D * 2
+          + 1024)
+    bars = 8 * (2 + 2 * p["dkv_stages"] + 2 * p["dq_stages"])
+    return dict(dkv=dkv, dq=dq, block=max(dkv, dq) + bars)
+
+
+def bwd_scratch_floats(B: int, H: int, S: int, which: str) -> int:
+    """fp32 scratch of a backward call: Delta (B, H, S) on mma_sync; on
+    wgmma Delta and lse * log2(e), each with rows padded to 64 a head
+    for the bulk copies of whole 64-row tiles."""
+    if which == "wgmma":
+        return 2 * B * H * (-(-S // 64) * 64)
+    return B * H * S
 
 
 def _check_operand(name: str, x: torch.Tensor) -> None:
@@ -178,25 +222,11 @@ def _aligned(x: torch.Tensor) -> torch.Tensor:
     return x.contiguous()
 
 
-def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
-                        causal: bool = True, window: int = 0,
-                        scale: float | None = None):
-    """The backward pass of ``flash_attention`` -> (dq, dk, dv): q, o, do
-    (B,H,S,D), k, v (B,KV,T,D) as the forward took them, ``lse`` the
-    forward's (B,H,S) fp32 row log-sum-exp. Gradients come out
-    contiguous in bf16, dk and dv summed over each KV head's q heads. A
-    tensor on the CPU takes ``ref.flash_attention_bwd_ref``; a CUDA tensor
-    launches the kernel (csrc/flash_attention_bwd.cu) or raises. The
-    kernel uses no atomics: two calls give the same bits."""
-    global bwd_launches
-    ts = (q, k, v, o, lse, do)
-    if all(x.device.type == "cpu" for x in ts):
-        return ref.flash_attention_bwd_ref(q, k, v, o, lse, do, causal,
-                                           window, scale)
-    if not all(x.is_cuda and x.device == q.device for x in ts):
-        raise ValueError("flash_attention_bwd: every operand must be on one "
-                         "CUDA device")
+def check_bwd_operands(q, k, v, o, lse, do, window: int
+                       ) -> tuple[int, int, int, int, int, int]:
+    """Raises ValueError unless the backward kernel takes the operands on
+    the route ``bwd_route`` picks (q, k and v as the forward takes them;
+    o and do like q; lse fp32 (B, H, S)); returns (B, H, KV, S, T, D)."""
     B, H, KV, S, T, D = check_operands(q, k, v, window)
     if o.shape != q.shape or do.shape != q.shape or \
             o.dtype != q.dtype or do.dtype != q.dtype:
@@ -206,23 +236,50 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if lse.shape != (B, H, S) or lse.dtype != torch.float32:
         raise ValueError(f"flash_attention_bwd: lse must be fp32 {(B, H, S)}, "
                          f"got {lse.dtype} {tuple(lse.shape)}")
+    return B, H, KV, S, T, D
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                        causal: bool = True, window: int = 0,
+                        scale: float | None = None):
+    """The backward pass of ``flash_attention`` -> (dq, dk, dv): q, o, do
+    (B,H,S,D), k, v (B,KV,T,D) as the forward took them, ``lse`` the
+    forward's (B,H,S) fp32 row log-sum-exp. Gradients come out
+    contiguous in bf16, dk and dv summed over each KV head's q heads. A
+    tensor on the CPU takes ``ref.flash_attention_bwd_ref``; a CUDA tensor
+    launches the kernel (csrc/flash_attention_bwd.cu) on ``bwd_route``'s
+    route or raises. Each block of the kernel owns the rows it writes:
+    two calls give the same bits."""
+    global bwd_launches
+    ts = (q, k, v, o, lse, do)
+    if all(x.device.type == "cpu" for x in ts):
+        return ref.flash_attention_bwd_ref(q, k, v, o, lse, do, causal,
+                                           window, scale)
+    if not all(x.is_cuda and x.device == q.device for x in ts):
+        raise ValueError("flash_attention_bwd: every operand must be on one "
+                         "CUDA device")
+    B, H, KV, S, T, D = check_bwd_operands(q, k, v, o, lse, do, window)
     o, do, lse = _aligned(o), _aligned(do), lse.contiguous()
     dq = torch.empty((B, H, S, D), dtype=q.dtype, device=q.device)
     dk = torch.empty((B, KV, T, D), dtype=k.dtype, device=q.device)
     dv = torch.empty((B, KV, T, D), dtype=v.dtype, device=q.device)
     if S == 0 or T == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
-    delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    which = bwd_route(D, q.dtype)
+    scratch = torch.empty(bwd_scratch_floats(B, H, S, which),
+                          dtype=torch.float32, device=q.device)
     scale = D ** -0.5 if scale is None else float(scale)
     err = _bwd_kernel()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        lse.data_ptr(), scratch.data_ptr(), dq.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), B, H, KV, S, T, D, *q.stride()[:3], *k.stride()[:3],
         *v.stride()[:3], *o.stride()[:3], *do.stride()[:3], int(causal),
-        int(window), scale, torch.cuda.current_stream(q.device).cuda_stream)
+        int(window), scale, BWD_ROUTES.index(which),
+        torch.cuda.current_stream(q.device).cuda_stream)
     if err:
-        raise RuntimeError(f"flash_attention_bwd kernel launch failed: "
-                           f"error {err}")
+        raise RuntimeError(f"flash_attention_bwd kernel ({which} route) "
+                           f"launch failed: error {err}")
     bwd_launches += 1
-    bwd_route_launches["mma_sync"] += 1
+    bwd_route_launches[which] += 1
     return dq, dk, dv

@@ -3,16 +3,18 @@ workload table (``repro_torch.configs.paper_workloads``) against the JAX
 package's ``repro.core``: the same workloads, managers, policies and
 engines give results equal with ``==``.
 
-Every input is fixed (no random draws), so the reference's UVM "all
-resident blocks pinned" fault, which only random pin patterns reach, does
-not enter these tests."""
+Every input is fixed. The reference's UVM "all resident blocks pinned"
+fault, which only random pin patterns reach, enters one test on purpose:
+the port's copy must raise it exactly where the reference does."""
 
 import dataclasses
 import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
+import test_engine_fuzz as fuzz  # the reference's fuzz trace generator
 
 from repro import core as jcore
 from repro.core import engine as jengine
@@ -175,3 +177,59 @@ def test_core_and_paper_workloads_import_no_jax_and_nothing_of_repro():
     res = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
+
+
+# `UVMManager.pin` pops the range's blocks from `resident`
+# (repro/core/uvm.py:150-155), so a later `touch` of the pinned range
+# faults them in again and takes their bytes from `free` a second time
+# (:107-127), until `_lru_victim` finds only pinned blocks and raises
+# (:204-208). The uvm fuzz trace of this seed reaches it: it is the
+# example test_engine_fuzz.py's property test saved.
+UVM_PIN_FAULT_SEED = 190
+
+
+def _uvm_fuzz_fault(core, engine, monkeypatch):
+    """The uvm trace ``assert_differential`` builds for
+    UVM_PIN_FAULT_SEED (test_engine_fuzz.py's generator over ``core``'s
+    AddressSpace), replayed op by op (``apply_trace``) or lowered and
+    batched (``execute_compiled``) until it raises: (the error, the ops
+    fed when it raised, the manager's state then)."""
+    monkeypatch.setattr(fuzz, "AddressSpace", core.AddressSpace)
+    rng = np.random.default_rng(UVM_PIN_FAULT_SEED)
+    space = fuzz.random_space(rng)
+    ops = fuzz.random_ops(rng, space, int(rng.integers(50, 400)),
+                          allow_spill=False)
+    mgr = core.UVMManager(fuzz.random_space(
+        np.random.default_rng(UVM_PIN_FAULT_SEED)))
+    fed = []
+
+    def feed():
+        for op in ops:
+            fed.append(op)
+            yield op
+    with pytest.raises(RuntimeError) as err:
+        if engine == "scalar":
+            core.apply_trace(mgr, feed())
+        else:
+            core.execute_compiled(core.compile_trace(feed()), mgr)
+    state = dict(resident=list(mgr.resident.items()), free=mgr.free,
+                 pinned=sorted(mgr.pinned), dirty=sorted(mgr.dirty),
+                 wall=mgr.wall)
+    return str(err.value), fed, state
+
+
+@pytest.mark.parametrize("engine", ["scalar", "batched"])
+def test_uvm_pin_fault_of_the_fuzz_trace_equals_reference(engine,
+                                                          monkeypatch):
+    """The reference's UVM pin-accounting fault, which the port's copy
+    shares on purpose: seed 190's uvm fuzz trace raises the same
+    RuntimeError at the same op through ``repro_torch.core`` as through
+    ``repro.core``, op by op and batched, and leaves the same state. When
+    the reference is repaired, the copy moves with it and this test
+    holds both to the repair."""
+    want = _uvm_fuzz_fault(jcore, engine, monkeypatch)
+    got = _uvm_fuzz_fault(tcore, engine, monkeypatch)
+    assert want[0] == "UVM: all resident blocks pinned"
+    assert got == want
+    if engine == "scalar":   # the 363rd of 393 ops raises
+        assert len(want[1]) == 363

@@ -469,6 +469,165 @@ def test_flash_checks_raise_as_before(case):
     assert tflash._fn is None
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("D", tflash.HEAD_DIMS)
+def test_flash_bwd_route_of_every_head_dim(D, dtype):
+    """The backward kernel's route follows D and the dtype alone, before
+    any launch: wgmma for bf16 rows that fill the 128-byte swizzle (D =
+    64, 128, 256), mma_sync below; every route is one of BWD_ROUTES, and
+    choosing builds nothing."""
+    want = "wgmma" if dtype == torch.bfloat16 and D >= 64 else "mma_sync"
+    assert tflash.bwd_route(D, dtype) == want
+    assert set(tflash.BWD_ROUTES) == {"wgmma", "mma_sync"}
+    assert tflash._bwd_fn is None
+
+
+def _bwd_csrc() -> str:
+    path = os.path.join(os.path.dirname(tflash.__file__), "csrc",
+                        "flash_attention_bwd.cu")
+    with open(path) as f:
+        return f.read()
+
+
+def test_flash_bwd_entry_point_takes_the_routes_by_their_index():
+    """The C entry point's cases are route index x 1000 + D for exactly
+    the (route, D) pairs ``bwd_route`` picks for bf16."""
+    cases = set(re.findall(r"REPRO_FA_BWD\((launch_\w+), (\d+), (\d+)\)",
+                           _bwd_csrc()))
+    want = set()
+    for D in tflash.HEAD_DIMS:
+        which = tflash.bwd_route(D, torch.bfloat16)
+        fn = "launch_wgmma" if which == "wgmma" else "launch_mma"
+        want.add((fn, str(D), str(tflash.BWD_ROUTES.index(which) * 1000 + D)))
+    assert cases == want
+
+
+@pytest.mark.parametrize("D", tflash.WGMMA_HEAD_DIMS)
+def test_flash_bwd_wgmma_smem_plan_fits_an_sm(D):
+    """A wgmma-route backward block in either role (dK/dV: K and V, a ring
+    of at least 2 stages of Q and dO tiles with their lse and Delta rows;
+    dQ: Q and dO of 128 rows, a ring of at least 2 stages of K and V
+    tiles), with the alignment slack and both roles' mbarriers, fits the
+    227 KB a block may use, and every tile is whole 1024-byte swizzle
+    atoms; at D = 256 the dK/dV role's consumers share 64 keys and dQ's
+    stages hold 32."""
+    plan = tflash.bwd_wgmma_plan(D)
+    smem = tflash.bwd_wgmma_smem_bytes(D)
+    assert plan["dkv_stages"] >= 2 and plan["dq_stages"] >= 2
+    assert smem["block"] <= tflash.SMEM_LIMIT == 227 * 1024
+    assert smem["block"] >= max(smem["dkv"], smem["dq"])
+    for rows in (plan["dkv_keys"], 64, tflash.WGMMA_BQ, plan["dq_keys"]):
+        assert (rows * D * 2) % 1024 == 0
+    assert plan["dkv_keys"] % 64 == 0 and plan["dq_keys"] % 16 == 0
+    if D == 256:
+        assert (plan["dkv_keys"], plan["dq_keys"]) == (64, 32)
+        # K, V 64 KB; 2 x (Q, dO 64 KB + lse, Delta 512 B); 2 x (K, V 32 KB)
+        assert smem == dict(dkv=65536 + 2 * (65536 + 512) + 1024,
+                            dq=131072 + 2 * 32768 + 1024,
+                            block=65536 + 2 * (65536 + 512) + 1024 + 8 * 10)
+
+
+@pytest.mark.parametrize("S,want", [(1, 2 * 3 * 5 * 64), (64, 2 * 3 * 5 * 64),
+                                    (65, 2 * 3 * 5 * 128),
+                                    (6404, 2 * 3 * 5 * 6464)])
+def test_flash_bwd_scratch_pads_rows_to_whole_tiles_on_wgmma(S, want):
+    """The wgmma route's Delta and lse rows are padded to 64 a head, so
+    that every 64-row tile's bulk copy reads inside the scratch; the
+    mma_sync route keeps one Delta a row."""
+    assert tflash.bwd_scratch_floats(3, 5, S, "wgmma") == want
+    assert tflash.bwd_scratch_floats(3, 5, S, "mma_sync") == 3 * 5 * S
+
+
+def _bwd_meta(B, H, KV, S, T, D, o=None, do=None, lse=None):
+    q, k, v = _meta_operands(B, H, KV, S, T, D, model_layout=True)
+    o = torch.empty((B, H, S, D), dtype=torch.bfloat16, device="meta") \
+        if o is None else o
+    do = q if do is None else do
+    lse = torch.empty((B, H, S), dtype=torch.float32, device="meta") \
+        if lse is None else lse
+    return q, k, v, o, lse, do
+
+
+@pytest.mark.parametrize("case", [
+    # (id, shape (B, H, KV, S, T, D), route) as chip_smoke.py's BWD_CASES
+    ("granite-3-2b", (2, 32, 8, 1024, 1024, 64), "wgmma"),
+    ("gemma3-1b-local", (2, 4, 1, 1024, 1024, 256), "wgmma"),
+    ("vlm-cross", (2, 32, 8, 1024, 6404, 128), "wgmma"),
+    ("reduced", (2, 4, 2, 100, 100, 16), "mma_sync"),
+    ("d32", (1, 4, 2, 100, 150, 32), "mma_sync"),
+], ids=lambda c: c[0])
+def test_flash_bwd_checks_take_the_model_operands(case):
+    """The backward wrapper's checks take the model's operands (q, k, v
+    transposed views, o and do of q's shape) on the route each shape
+    takes; nothing is built."""
+    _, shape, want = case
+    ops_ = _bwd_meta(*shape)
+    assert tflash.check_bwd_operands(*ops_, window=0) == shape
+    assert tflash.bwd_route(shape[-1], ops_[0].dtype) == want
+    assert tflash._bwd_fn is None
+
+
+@pytest.mark.parametrize("D", [64, 16], ids=["wgmma", "mma_sync"])
+@pytest.mark.parametrize("case", [
+    ("o-shape", dict(o=(1, 2, 9, None)), "must match q"),
+    ("o-dtype", dict(o_dtype=torch.float32), "must match q"),
+    ("do-shape", dict(do=(1, 2, 8, None, 1)), "must match q"),
+    ("lse-dtype", dict(lse_dtype=torch.bfloat16), "lse must be fp32"),
+    ("lse-shape", dict(lse=(1, 2, 9)), "lse must be fp32"),
+    ("q-fp32", dict(q_dtype=torch.float32), "takes bf16"),
+    ("misaligned-q", dict(misaligned=True), "16-byte aligned rows"),
+    ("window", dict(window=-1), "window < 0"),
+], ids=lambda c: c[0])
+def test_flash_bwd_checks_raise_on_what_the_route_cannot_take(case, D):
+    """What neither route takes raises ValueError before any build: o or
+    do unlike q, lse not fp32 (B, H, S), q not bf16, rows not 16-byte
+    aligned (TMA's and the loads' rule), a negative window."""
+    _, bad, match = case
+    B, H, KV, S, T = 1, 2, 2, 8, 8
+    q = torch.zeros((B, H, S, D), dtype=bad.get("q_dtype", torch.bfloat16))
+    if bad.get("misaligned"):
+        q = _misaligned((B, H, S, D))
+    k = torch.zeros((B, KV, T, D), dtype=torch.bfloat16)
+    o = torch.zeros(tuple(x if x else D for x in bad.get("o", (B, H, S, D))),
+                    dtype=bad.get("o_dtype", torch.bfloat16))
+    do = torch.zeros(tuple(x if x else D for x in bad.get("do", (B, H, S, D))),
+                     dtype=torch.bfloat16)
+    lse = torch.zeros(bad.get("lse", (B, H, S)),
+                      dtype=bad.get("lse_dtype", torch.float32))
+    with pytest.raises(ValueError, match=match):
+        tflash.check_bwd_operands(q, k, k, o, lse, do, bad.get("window", 0))
+    assert tflash._bwd_fn is None
+
+
+def test_flash_bwd_wrapper_raises_off_the_cpu_without_a_card():
+    """Operands that are not all on the CPU must all be on one CUDA
+    device: meta tensors raise ValueError instead of taking the plain
+    version, and nothing is built or counted."""
+    tflash.bwd_launches = 0
+    tflash.bwd_route_launches.update(dict.fromkeys(tflash.BWD_ROUTES, 0))
+    for D in (64, 16):
+        with pytest.raises(ValueError, match="one CUDA device"):
+            tflash.flash_attention_bwd(*_bwd_meta(1, 4, 2, 64, 64, D))
+    assert tflash.bwd_launches == 0
+    assert tflash.bwd_route_launches == {"wgmma": 0, "mma_sync": 0}
+    assert tflash._bwd_fn is None
+
+
+def test_flash_bwd_source_has_no_atomics():
+    """Every block of the backward kernel owns the rows it writes: the
+    source and the headers it includes hold no atomic operation and no
+    reducing store or copy (``red.``, ``cp.reduce``), on either route, so
+    two calls give the same bits."""
+    csrc = os.path.join(os.path.dirname(tflash.__file__), "csrc")
+    src = _bwd_csrc()
+    heads = re.findall(r'#include "(\w+\.cuh)"', src)
+    assert set(heads) == {"mma_bf16.cuh", "sm90.cuh"}
+    for text in [src] + [open(os.path.join(csrc, h)).read() for h in heads]:
+        assert "atomic" not in text.lower()
+        assert not re.search(r"\bred\.|cp\.reduce", text)
+
+
 def test_flash_cpu_tensors_take_the_plain_version_on_every_route_shape():
     """CPU tensors at a wgmma-route D (model layout, GQA, a window) and at
     an mma_sync-route D give the plain version's bits and count no launch,
