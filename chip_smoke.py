@@ -4,8 +4,9 @@
     python3 chip_smoke.py        # from the repository root, one CUDA card
     python3 chip_smoke.py --only flash-bwd   # build, then phase 8(a) alone,
                                              # each launch profiled
+    python3 chip_smoke.py --only scan-bwd    # build, then phase 8(a') alone
 
-1. Prints the card's name and power limit, then builds the six CUDA
+1. Prints the card's name and power limit, then builds the seven CUDA
    kernels from ``src/repro_torch/kernels/csrc`` with nvcc (sm_90a), one
    nvcc process each, all at once.
 2. Holds the matmul kernel against its plain version at every shape the
@@ -142,9 +143,24 @@
    L2 distance to an fp64 truth within PATH_RATIO of the plain
    version's; timed beside the plain version and the backward pass of
    SDPA through autograd.
-   (c) One train step (AdamW) of each reduced non-Mamba config on the
-   card against the CPU: loss and grad norm within 2e-2 (MoE layers on
-   the CPU's routing, gates at REDUCED_GATE).
+   (a') The serving scan's outputs at SERVE_SCAN_CASES against
+   SERVE_SCAN_DIGEST, the bits the kernel gave before its training
+   instance; then the scan's backward kernel (``mamba_scan_bwd``) at
+   SCAN_BWD_CASES: falcon-mamba-7b's training microbatch (1, 1024, 8192,
+   16) with x in bf16, the reduced config's shape, ragged S, D = 8190,
+   every padded N (1 to 64), Bt > 1, dh_last given: the forward's
+   training instance (chunk states) against its plain version, then d
+   dt, dA, dB, dC and dx against ``mamba_scan_bwd_ref`` on the same
+   inputs within SCAN_BWD_TOL (an atol a channel of d dt and dx, a step
+   of dB and dC), the tolerances' power to reject a zeroed and a 10 %-off
+   output, whole or in the first half of the steps (where the reverse
+   pass ends), a second call's bits against the first's, each grad's
+   relative L2 distance to an fp64 truth within PATH_RATIO of the plain
+   version's; timed beside its bound and the plain version, and the
+   forward with and without chunk states.
+   (c) One train step (AdamW) of each reduced config on the card against
+   the CPU: loss and grad norm within 2e-2 (MoE layers on the CPU's
+   routing, gates at REDUCED_GATE).
    The matmul kernel at the training shapes of granite-3-2b's microbatch:
    each projection's forward, dA and dW products and the tied head's
    chunk, beside ``torch.matmul`` and the transposes.
@@ -158,10 +174,18 @@
    with a checkpoint period past the run; finite losses and grad norms,
    launches a step by kernel and route exactly ``train_counts``, every
    leaf moved; step walls, tokens/s, peak memory, and one more step under
-   the profiler (device busy, idle share).
+   the profiler (device busy, idle share, the kernels and the ops that
+   take the most device time).
+   (b') and (d') The same for falcon-mamba-7b at full width cut to
+   MAMBA_TRAIN_LAYERS of its 64 layers (16 microbatches of 1 x 1024
+   tokens, AdamW): (b') on its first TRAIN_PATHS_LAYERS layers, then 3
+   steps whose launches are exactly ``train_counts`` (the scan forward
+   twice and its backward once a layer and microbatch) and whose peak
+   memory stays under MAMBA_PEAK_GB.
    (e) ``python -m repro_torch.launch.train --reduced --steps 8`` into a
    temporary ``--ckpt``, twice: the second run resumes from step 8 with
-   the first run's state bit for bit.
+   the first run's state bit for bit; then ``--arch falcon-mamba-7b``
+   once, on CUDA.
 9. The paper's Category-I and Category-II workloads: holds the STREAM
    triad and Jacobi-2d kernels against their plain versions bit for bit
    (fp32 triad: at most 1 ulp, the count printed) at (32768, 32768) in
@@ -317,6 +341,15 @@ CTX_COUNTS = {
 TRAIN_ARCH = "granite-3-2b"
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 1024, 3
 TRAIN_PATHS_LAYERS = 4
+# falcon-mamba-7b trained at full width through the scan's kernels: its
+# TrainSettings' 16 microbatches, global batch 16 x 1024 tokens, AdamW,
+# TRAIN_STEPS steps; cut in depth to MAMBA_TRAIN_LAYERS of its 64 layers,
+# the deepest multiple of 4 whose peak memory stays under 72 GB (params,
+# AdamW's fp32 moments and the bf16 grads take about 24.5 bytes a param)
+MAMBA_ARCH = "falcon-mamba-7b"
+MAMBA_TRAIN_BATCH = 16
+MAMBA_TRAIN_LAYERS = 20
+MAMBA_PEAK_GB = 72
 LAUNCHER_TRAIN_STEPS = 8
 # the row log-sum-exp, fp32 in both versions (the wgmma route's ex2.approx
 # within 2^-22 a term)
@@ -335,7 +368,8 @@ BWD_TOL = dict(rtol=2e-2, atol_row=2e-2, atol_rel=1e-4)
 REDUCED_TRAIN_TOL = 2e-2
 # the reduced non-Mamba configs reduced_vs_cpu covers: one train step each
 TRAIN_REDUCED = ("gemma3-1b", MOE_ARCH, "granite-3-2b", "chatglm3-6b",
-                 "granite-20b", "mixtral-8x7b", VLM_ARCH, ENCDEC_ARCH)
+                 "granite-20b", "mixtral-8x7b", VLM_ARCH, ENCDEC_ARCH,
+                 MAMBA_ARCH)
 # the backward kernel's cases and the route each takes: granite-3-2b's
 # microbatch (32:8, D 64, causal), gemma3-1b's local layers (4:1, D 256,
 # window 512), the VLM's cross-attention (32:8, D 128, S 1024 against T
@@ -351,6 +385,51 @@ BWD_CASES = ((2, 32, 8, 1024, 1024, 64, True, 0, "granite-3-2b", "wgmma"),
              (1, 4, 1, 300, 200, 128, True, 0, "S>T", "wgmma"),
              (1, 2, 2, 200, 300, 256, False, 100, "nc window", "wgmma"),
              (1, 8, 2, 6404, 6404, 128, True, 1000, "T6404 window", "wgmma"))
+
+# the scan's backward kernel against its plain version, both fp32 but for
+# dx (x's dtype): the reverse recurrence carries g over many steps and the
+# sums over D and Bt add in other orders, so an element's error follows
+# its channel's largest |want| (d dt, dx: atol_row over the steps of a
+# channel) or its step's (dB, dC: over the states of a step), dA its
+# channel's; rtol 2e-3 is SCAN_TOL's fp32 rtol, 8e-3 one bf16 rounding
+SCAN_BWD_TOL = {torch.float32: dict(rtol=2e-3, atol_row=1e-3, atol_rel=1e-5),
+                torch.bfloat16: dict(rtol=8e-3, atol_row=1e-3, atol_rel=1e-5)}
+# FP32 instructions a state-step of the backward pass: the recompute's
+# dt * A, u * B and h FMA; g, the dB, dC and du partials, a h, g a h, the
+# d dt and dA sums and the carry a g
+SCAN_BWD_FP32 = 12
+# the serving scan (a null chunk-state pointer) at SERVE_SCAN_CASES, (Bt,
+# S, D, N, x dtype): the scan phase's cases and falcon-mamba-7b's prefill
+# shape. The inputs are uniform draws of numpy's PCG64 seeded by S * 13 +
+# D + N, the same bits on any numpy and torch; the sha256 of the outputs'
+# bytes (y, then h_last, a case after another) must be SERVE_SCAN_DIGEST,
+# the bits the kernel gave before its training instance was added. A
+# change to the serving scan that alters its bits on purpose retakes it.
+SERVE_SCAN_CASES = (
+    (1, 128, 512, 16, torch.float32), (2, 256, 1024, 16, torch.float32),
+    (2, 128, 640, 8, torch.float32), (1, 1000, 512, 16, torch.float32),
+    (2, 37, 640, 4, torch.float32), (3, 200, 384, 8, torch.float32),
+    (2, 300, 640, 1, torch.float32), (2, 200, 512, 32, torch.float32),
+    (1, 100, 384, 64, torch.float32), (2, 24, 128, 4, torch.bfloat16),
+    (2, 250, 8190, 16, torch.bfloat16), (1, 4096, 1024, 16, torch.bfloat16),
+    (2, 64, 8192, 64, torch.bfloat16), (4, 1024, 8192, 16, torch.bfloat16))
+SERVE_SCAN_DIGEST = (
+    "5de8a1a7c43ecc7309d21e07a6685a1bc1534d0d1ee0cf2699b9663549d9ebb0")
+# (Bt, S, D, N, x dtype, tag, options): falcon-mamba-7b's training
+# microbatch (1 x 1024 tokens, d_inner 8192, N 16) and its reduced
+# config's, ragged S with dh_last, D = 8190 (rows not 16-byte aligned),
+# every padded instance (N = 1, 4, 8, 16, 32, 64), Bt > 1
+SCAN_BWD_CASES = (
+    (1, 1024, 8192, 16, torch.bfloat16, "microbatch", dict(model_like=True)),
+    (2, 64, 128, 4, torch.bfloat16, "reduced", dict(model_like=True)),
+    (1, 1000, 512, 16, torch.float32, "ragged S", dict(dh=True)),
+    (2, 250, 8190, 16, torch.bfloat16, "ragged D", dict(model_like=True)),
+    (2, 300, 640, 1, torch.float32, "N=1", dict(dh=True)),
+    (3, 37, 640, 4, torch.float32, "N=4 Bt=3", {}),
+    (4, 33, 256, 8, torch.float32, "N=8", dict(dh=True)),
+    (2, 200, 512, 32, torch.float32, "N=32", {}),
+    (1, 100, 384, 64, torch.float32, "N=64", dict(dh=True)),
+    (2, 64, 8192, 64, torch.bfloat16, "N=64 model", dict(model_like=True)))
 
 
 def smi() -> str:
@@ -1102,6 +1181,227 @@ def scan_phase(cfg):
                       torch.bfloat16, "model", model_like=True)
     rows.append(model)
     return rows, [(model, cfg.n_layers)]
+
+
+def scan_grads_fp64(dt, A, B, C, x, dy, dh_last) -> list:
+    """d dt, dA, dB, dC, dx of the scan in fp64 from the same inputs, by
+    autograd of the recurrence: the truth the backward kernel and its
+    plain version are both measured against."""
+    ins = [t.double().requires_grad_() for t in (dt, A, B, C, x)]
+    dt_, A_, B_, C_, x_ = ins
+    h = torch.zeros((x.shape[0], x.shape[2], A.shape[1]), dtype=torch.float64,
+                    device=x.device)
+    ys = []
+    for t in range(x.shape[1]):
+        h = torch.exp(dt_[:, t, :, None] * A_) * h \
+            + (dt_[:, t] * x_[:, t])[..., None] * B_[:, t, None, :]
+        ys.append(torch.einsum("bdn,bn->bd", h, C_[:, t]))
+    outs, cots = [torch.stack(ys, 1)], [dy.double()]
+    if dh_last is not None:
+        outs.append(h)
+        cots.append(dh_last.double())
+    return list(torch.autograd.grad(outs, ins, cots))
+
+
+def check_discerns_early(name, want, tol, view) -> None:
+    """The tolerance (on ``view`` of the tensors) must reject an output of
+    zeros, one 10 % off, and, where it has a time axis (axis 1 of (Bt, S,
+    ...)), one zeroed or 10 % off in its first half of the steps: where
+    the reverse pass ends."""
+    bads = [torch.zeros_like(want), want * 1.1]
+    if want.dim() == 3:
+        for f in (0.0, 1.1):
+            bad = want.clone()
+            bad[:, :want.shape[1] // 2] *= f
+            bads.append(bad)
+    for bad in bads:
+        if within(view(bad), view(want), tol):
+            raise AssertionError(f"{name}: tolerance {tol} passes a zeroed or "
+                                 f"10%-off output, whole or in its first half "
+                                 f"of the steps")
+
+
+def scan_bwd_case(Bt, S, D, N, x_dtype, tag, model_like=False, dh=False,
+                  split=False) -> dict:
+    """One case of the scan's backward kernel: the inputs of ``scan_case``
+    and a normal dy (and dh_last with ``dh``). The forward's training
+    instance (chunk states) within SCAN_TOL of the plain version;
+    ``mamba_scan_bwd`` twice (the same bits) against
+    ``mamba_scan_bwd_ref`` on the same inputs within SCAN_BWD_TOL, each
+    tolerance's power to reject a wrong output (whole, or in the first
+    half of the steps); each grad's relative L2 distance to an fp64 truth
+    within PATH_RATIO of the plain version's; the kernel and the plain
+    version timed. With ``split``, the two launches' device times under
+    the profiler."""
+    from repro_torch.kernels import mamba_scan as kscan
+    from repro_torch.kernels import ref
+
+    g = torch.Generator(device="cuda").manual_seed(S * 7 + D + N)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device="cuda")
+    if model_like:
+        dt = F.softplus(0.5 * randn(Bt, S, D) - 4.6)
+        A = -torch.arange(1, N + 1, dtype=torch.float32,
+                          device="cuda").expand(D, N).contiguous()
+        B, C = 0.3 * randn(Bt, S, N), 0.3 * randn(Bt, S, N)
+        x = F.silu(randn(Bt, S, D)).to(x_dtype)
+    else:
+        dt = F.softplus(randn(Bt, S, D))
+        A = -torch.exp(0.3 * randn(D, N))
+        B, C = randn(Bt, S, N), randn(Bt, S, N)
+        x = randn(Bt, S, D).to(x_dtype)
+    dy = randn(Bt, S, D).to(x_dtype)
+    dh_last = randn(Bt, D, N) if dh else None
+    fwd = (dt, A, B, C, x)
+    name = f"mamba_scan_bwd {tag} ({Bt},{S},{D},{N})"
+    y, h, hc = kscan.mamba_scan(*fwd, chunk_states=True)
+    y_want, h_want = ref.mamba_scan_ref(*fwd)
+    fwd_err = check_close(f"{name} forward y", y, y_want, SCAN_TOL[x_dtype])
+    check_close(f"{name} forward h_last", h, h_want, H_TOL)
+    del y, h, y_want, h_want
+    args = (*fwd, dy, dh_last, hc)
+    p = kscan.plan_bwd(Bt, S, D, N, x.element_size())
+    before = kscan.bwd_launches
+    got = kscan.mamba_scan_bwd(*args)
+    again = kscan.mamba_scan_bwd(*args)
+    if kscan.bwd_launches - before != 2:
+        raise AssertionError(f"{name}: {kscan.bwd_launches - before} backward "
+                             f"launches for 2 calls")
+    want = ref.mamba_scan_bwd_ref(*fwd, dy, dh_last)
+    torch.cuda.synchronize()
+    truth = scan_grads_fp64(*fwd, dy, dh_last)
+    errs, l2 = {}, {}
+    per_channel = lambda t: t.transpose(1, 2)   # noqa: E731  (Bt, D, S)
+    same = lambda t: t                          # noqa: E731
+    for nm, got_x, again_x, want_x, true_x in zip(
+            ("d_dt", "dA", "dB", "dC", "dx"), got, again, want, truth):
+        view = per_channel if nm in ("d_dt", "dx") else same
+        tol = SCAN_BWD_TOL[got_x.dtype]
+        if got_x.dtype != want_x.dtype or got_x.shape != want_x.shape:
+            raise AssertionError(f"{name} {nm}: {got_x.dtype} "
+                                 f"{tuple(got_x.shape)} against {want_x.dtype} "
+                                 f"{tuple(want_x.shape)}")
+        errs[nm] = check_close(f"{name} {nm}", view(got_x), view(want_x), tol)
+        check_discerns_early(f"{name} {nm}", want_x, tol, view)
+        if not torch.equal(got_x, again_x):
+            raise AssertionError(f"{name} {nm}: two calls on the same inputs "
+                                 f"differ")
+        l2[nm] = {"kernel": rel_l2(got_x, true_x), "plain": rel_l2(want_x, true_x)}
+        if not l2[nm]["kernel"] <= PATH_RATIO * l2[nm]["plain"]:
+            raise AssertionError(f"{name} {nm}: relative L2 to fp64 "
+                                 f"{l2[nm]['kernel']:.3e}, over {PATH_RATIO} "
+                                 f"x the plain version's {l2[nm]['plain']:.3e}")
+    del got, again, want, truth
+    free_memory()
+    ms = time_ms(lambda: kscan.mamba_scan_bwd(*args), [()])
+    plain = time_ms(lambda: ref.mamba_scan_bwd_ref(*fwd, dy, dh_last), [()],
+                    reps=3)
+    # the forward as training runs it (chunk states), as serving runs it,
+    # and its plain version
+    fwd_ms = time_ms(lambda: kscan.mamba_scan(*fwd, chunk_states=True), [()])
+    serve_ms = time_ms(lambda: kscan.mamba_scan(*fwd), [()])
+    fwd_plain = time_ms(lambda: ref.mamba_scan_ref(*fwd), [()], reps=3)
+    if split:   # the call's device time by launch: the scan, then the sums
+        _, _, top = profile_device(lambda: kscan.mamba_scan_bwd(*args))
+        split = {part: sum(t for nm, t, _ in top if key in nm)
+                 for part, key in (("scan", "mamba_scan_bwd<"),
+                                   ("sum", "mamba_scan_bwd_sum"))}
+    es = x.element_size()
+    n_ss = Bt * S * D * N    # state-steps
+    nbytes = (Bt * S * D * (4 + 2 * es) + Bt * S * D * (4 + es)   # dt, x, dy; d dt, dx
+              + 4 * Bt * S * N * 4 + 2 * D * N * 4                # B, C, dB, dC; A, dA
+              + (Bt * D * N * 4 if dh else 0))                    # dh_last
+    # SCAN_BWD_FP32 FP32 instructions a state-step, each an issue slot of
+    # the fp32 peak's FMA (2 flops), and one exponential
+    bnd, by = bound_ms(nbytes, 2.0 * SCAN_BWD_FP32 * n_ss, torch.float32,
+                       exps=n_ss)
+    # the forward's: dt, x in, y out, B, C, A in, h_last and the chunk
+    # states out; per state-step dt*A, exp, the h and y FMAs (scan_case's)
+    fwd_bytes = (Bt * S * D * (4 + 2 * es) + 2 * Bt * S * N * 4 + D * N * 4
+                 + Bt * D * N * 4 + hc.numel() * 4)
+    fwd_bnd, fwd_by = bound_ms(fwd_bytes, 6.0 * n_ss, torch.float32,
+                               exps=n_ss)
+    row = dict(tag=tag, Bt=Bt, S=S, D=D, N=N, x_dtype=_dt(x_dtype),
+               dh_last=dh, lanes=p.lanes, channels=p.channels, chunk=p.chunk,
+               stages=p.stages, smem_bytes=p.smem_bytes, grid=p.grid,
+               chunk_state_bytes=hc.numel() * 4,
+               workspace_bytes=(p.ws_bc_floats + p.ws_a_floats) * 4,
+               max_abs_err=max(errs.values()), errs=errs, rel_l2_fp64=l2,
+               ms=ms, plain_ms=plain, library_ms=None, bound_ms=bnd,
+               bound_by=by, bytes_bound_ms=nbytes / HBM_BYTES_S * 1e3,
+               exp_bound_ms=n_ss / EXP_RATE * 1e3,
+               fp32_bound_ms=2.0 * SCAN_BWD_FP32 * n_ss
+               / PEAK_FLOPS[torch.float32] * 1e3, split_ms=split or None,
+               forward=dict(max_abs_err=fwd_err, ms=fwd_ms, serve_ms=serve_ms,
+                            plain_ms=fwd_plain, library_ms=None,
+                            bound_ms=fwd_bnd, bound_by=fwd_by))
+    print(f"mamba_scan_bwd {tag:>10} ({Bt},{S},{D},{N}) x {row['x_dtype']} "
+          f"dh_last={int(dh)} plan G={p.lanes} channels/block={p.channels} "
+          f"chunk={p.chunk} stages={p.stages} smem={p.smem_bytes} "
+          f"grid={p.grid}; err "
+          + " ".join(f"{k} {v:.2e}" for k, v in errs.items())
+          + "; rel L2 to fp64 kernel/plain "
+          + " ".join(f"{k} {v['kernel']:.3e}/{v['plain']:.3e}"
+                     for k, v in l2.items())
+          + f"; kernel {ms:.4f} ms  plain {plain:.4f}  bound {bnd:.4f} ({by}; "
+          f"bytes {row['bytes_bound_ms']:.4f}, exp {row['exp_bound_ms']:.4f}, "
+          f"fp32 {row['fp32_bound_ms']:.4f}); forward with chunk states "
+          f"{fwd_ms:.4f} ms, serving's {serve_ms:.4f}, plain {fwd_plain:.4f}, "
+          f"bound {fwd_bnd:.4f}"
+          + ("; profiled " + " ".join(f"{k} {v:.4f}" for k, v in split.items())
+             if split else ""), flush=True)
+    del args, fwd, dy, dh_last, hc
+    free_memory()
+    return row
+
+
+def serve_scan_digest(kscan) -> str:
+    """The sha256 of the serving scan's outputs (``kscan.mamba_scan`` with
+    no chunk states) at SERVE_SCAN_CASES."""
+    import hashlib
+
+    import numpy as np
+
+    total = hashlib.sha256()
+    for Bt, S, D, N, xd in SERVE_SCAN_CASES:
+        rng = np.random.default_rng(S * 13 + D + N)
+
+        def uniform(lo, hi, *shape):
+            u = lo + (hi - lo) * rng.random(shape)
+            return torch.from_numpy(u.astype(np.float32)).cuda()
+        dt = uniform(1e-3, 0.1, Bt, S, D)
+        A = -uniform(0.25, 1.75, D, N)
+        B, C = uniform(-1.0, 1.0, Bt, S, N), uniform(-1.0, 1.0, Bt, S, N)
+        x = uniform(-1.0, 1.0, Bt, S, D).to(xd)
+        for t in kscan.mamba_scan(dt, A, B, C, x):
+            total.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+        del dt, A, B, C, x
+    free_memory()
+    return total.hexdigest()
+
+
+def serve_scan_bits() -> dict:
+    """The serving scan's outputs at SERVE_SCAN_CASES against
+    SERVE_SCAN_DIGEST, the bits it gave before the training instance."""
+    from repro_torch.kernels import mamba_scan as kscan
+
+    digest = serve_scan_digest(kscan)
+    print(f"serving scan at {len(SERVE_SCAN_CASES)} shapes: digest "
+          f"{digest[:16]}, before the training instance "
+          f"{SERVE_SCAN_DIGEST[:16]}", flush=True)
+    if digest != SERVE_SCAN_DIGEST:
+        raise AssertionError(f"the serving scan's outputs changed: digest "
+                             f"{digest}, before {SERVE_SCAN_DIGEST}")
+    return dict(digest=digest)
+
+
+def scan_bwd_phase(split: bool = False) -> dict:
+    """Phase 8(a'): the serving scan's bits, then the scan's backward
+    kernel at SCAN_BWD_CASES."""
+    return dict(serve_bits=serve_scan_bits(),
+                cases=[scan_bwd_case(*c[:6], **c[6], split=split)
+                       for c in SCAN_BWD_CASES])
 
 
 # ------------------------------------------------------------------- serve
@@ -2451,25 +2751,38 @@ def train_matmul_phase(cfg, mb_tokens: int) -> list[dict]:
 
 def train_counts(cfg, microbatches: int) -> dict:
     """Launches of one train step by kernel and route, read off the code:
-    a microbatch's forward runs every projection and the head's chunks
-    (C = A E^T on mma_sync), the recompute runs them again (every layer
-    sits in a period), and the backward pass takes two products a
-    forward product, on wgmma; flash runs forward twice and backward
-    once a layer, both on wgmma (D = 64)."""
+    a microbatch's forward runs every projection and the head's chunks,
+    the recompute runs them again (every layer sits in a period), and the
+    backward pass takes two products a forward product, on wgmma; a tied
+    head's forward (C = A E^T) runs on mma_sync, an untied one's on
+    wgmma. Flash runs forward twice and backward once an attention layer,
+    both on wgmma (D = 64); the scan likewise a Mamba layer, on its one
+    route ("cuda")."""
     from repro_torch.launch.steps import CE_CHUNK
 
     per_layer = sum(n for _, _, _, n in projections(cfg))
     chunks = math.ceil(TRAIN_SEQ / CE_CHUNK)
     fwd = cfg.n_layers * per_layer + chunks
-    return dict(
-        matmul={"wgmma": microbatches * (4 * fwd - 2 * chunks),
-                "mma_sync": microbatches * 2 * chunks},
-        flash_attention={"wgmma": microbatches * 2 * cfg.n_layers},
-        flash_attention_bwd={"wgmma": microbatches * cfg.n_layers})
+    tied = 2 * chunks if cfg.tie_embeddings else 0
+    mixer = "mamba_scan" if cfg.attention_free else "flash_attention"
+    route = "cuda" if cfg.attention_free else "wgmma"
+    counts = dict(matmul={"wgmma": microbatches * (4 * fwd - tied)},
+                  **{k: {} for k in COUNTED if k != "matmul"})
+    if tied:
+        counts["matmul"]["mma_sync"] = microbatches * tied
+    counts[mixer] = {route: microbatches * 2 * cfg.n_layers}
+    counts[mixer + "_bwd"] = {route: microbatches * cfg.n_layers}
+    return counts
+
+
+# the kernels whose launches a train step counts, by route
+COUNTED = ("matmul", "flash_attention", "flash_attention_bwd", "mamba_scan",
+           "mamba_scan_bwd")
 
 
 def _reset_counts() -> None:
     from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import mamba_scan as kscan
     from repro_torch.kernels import matmul as kmm
 
     for m in (kmm, kfa):
@@ -2477,16 +2790,20 @@ def _reset_counts() -> None:
         m.route_launches.update(dict.fromkeys(m.ROUTES, 0))
     kfa.bwd_launches = 0
     kfa.bwd_route_launches.update(dict.fromkeys(kfa.BWD_ROUTES, 0))
+    kscan.launches = kscan.bwd_launches = 0
 
 
 def _read_counts() -> dict:
     from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import mamba_scan as kscan
     from repro_torch.kernels import matmul as kmm
 
     nonzero = lambda d: {r: n for r, n in d.items() if n}  # noqa: E731
     return dict(matmul=nonzero(kmm.route_launches),
                 flash_attention=nonzero(kfa.route_launches),
-                flash_attention_bwd=nonzero(kfa.bwd_route_launches))
+                flash_attention_bwd=nonzero(kfa.bwd_route_launches),
+                mamba_scan=nonzero({"cuda": kscan.launches}),
+                mamba_scan_bwd=nonzero({"cuda": kscan.bwd_launches}))
 
 
 def train_paths(cfg, params, toks, labs) -> dict:
@@ -2585,15 +2902,20 @@ def reduced_train_vs_cpu(name: str) -> dict:
     return dict(out, rel=rel)
 
 
-def train_phase(served_sums: dict) -> dict:
-    """Phase (d), and (b) on its params: granite-3-2b at full width
-    trained TRAIN_STEPS steps through ``TrainSupervisor.run`` and
+def train_phase(arch: str, batch: int, served_sums: dict | None = None,
+                n_layers: int | None = None) -> dict:
+    """Phase (d), and (b) on its params: ``arch`` at full width (cut to
+    ``n_layers`` layers if given) trained TRAIN_STEPS steps of ``batch`` x
+    TRAIN_SEQ tokens through ``TrainSupervisor.run`` and
     ``make_train_step`` (its TrainSettings' microbatches, AdamW), with a
-    ``CheckpointManager`` whose period exceeds the run, so that no 25 GB
-    state is written. The fresh params must equal those the serve phase
-    served (``param_sums``); every step's loss and grad norm must be
-    finite, its launches by kernel and route exactly ``train_counts``;
-    every leaf must move. One more step runs under the profiler."""
+    ``CheckpointManager`` whose period exceeds the run, so that no
+    many-GB state is written. With ``served_sums`` the fresh params must
+    equal those its serve phase served (``param_sums``); every step's loss
+    and grad norm must be finite, its launches by kernel and route exactly
+    ``train_counts``; every leaf must move. One more step runs under the
+    profiler: device busy, the kernels and the ops that take the most
+    device time."""
+    import dataclasses
     import tempfile
 
     from repro_torch.bridge import init_params, leaves
@@ -2605,25 +2927,27 @@ def train_phase(served_sums: dict) -> dict:
     from repro_torch.launch.steps import make_train_step
     from repro_torch.optim import OptConfig, make_optimizer
 
-    cfg = get_config(TRAIN_ARCH)
-    st = settings_for(TRAIN_ARCH)
+    cfg = get_config(arch)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    st = settings_for(arch)
     mb = st.microbatches
     torch.cuda.reset_peak_memory_stats()
     params = init_params(cfg, seed=0, device="cuda")
     sums = param_sums(params)
-    if sums != served_sums:
+    if served_sums is not None and sums != served_sums:
         raise AssertionError(f"train {cfg.name}: the fresh params differ from "
                              f"the ones its serve phase served")
     data = SyntheticLM(vocab=cfg.vocab, seed=0)
 
     def batch_of(step):
-        b = data.batch(step, 0, TRAIN_BATCH, TRAIN_SEQ)
+        b = data.batch(step, 0, batch, TRAIN_SEQ)
         return {k: torch.from_numpy(b[k]).to("cuda")
                 for k in ("tokens", "labels")}
 
     first = batch_of(0)
-    paths = train_paths(cfg, params, first["tokens"][:TRAIN_BATCH // mb],
-                        first["labels"][:TRAIN_BATCH // mb])
+    paths = train_paths(cfg, params, first["tokens"][:batch // mb],
+                        first["labels"][:batch // mb])
     opt_cfg = OptConfig(kind=st.optimizer, lr=3e-4,
                         warmup_steps=max(TRAIN_STEPS // 10, 1),
                         total_steps=TRAIN_STEPS)
@@ -2636,16 +2960,16 @@ def train_phase(served_sums: dict) -> dict:
     log = []
 
     def step_fn(i, st_):
-        batch = batch_of(i)
+        b = batch_of(i)
         _reset_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        p, o, m = step(st_["params"], st_["opt"], batch)
+        p, o, m = step(st_["params"], st_["opt"], b)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = _read_counts()
         row = dict(step=i, loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
-                   wall_s=wall, tok_s=TRAIN_BATCH * TRAIN_SEQ / wall,
+                   wall_s=wall, tok_s=batch * TRAIN_SEQ / wall,
                    launches=counts)
         log.append(row)
         print(f"train {cfg.name} step {i}: loss {row['loss']:.6f} grad norm "
@@ -2674,15 +2998,15 @@ def train_phase(served_sums: dict) -> dict:
     if still:
         raise AssertionError(f"train {cfg.name}: params did not move (leaf, "
                              f"period slice): {still[:16]}")
-    batch = batch_of(TRAIN_STEPS)
-    busy, wall_p, top = profile_device(
-        lambda: step(state["params"], state["opt"], batch))
+    b = batch_of(TRAIN_STEPS)
+    busy, wall_p, top, ops = profile_device(
+        lambda: step(state["params"], state["opt"], b), ops=True)
     steady = statistics.median(r["wall_s"] for r in log[1:])
-    flops = 6.0 * n_params * TRAIN_BATCH * TRAIN_SEQ
-    print(f"train {cfg.name}: {TRAIN_STEPS} steps of {TRAIN_BATCH}x{TRAIN_SEQ} "
-          f"tokens ({mb} microbatches): step walls "
+    flops = 6.0 * n_params * batch * TRAIN_SEQ
+    print(f"train {cfg.name}: {TRAIN_STEPS} steps of {batch}x{TRAIN_SEQ} "
+          f"tokens ({mb} microbatches, {cfg.n_layers} layers): step walls "
           + ", ".join(f"{r['wall_s']:.3f}" for r in log)
-          + f" s; steady {steady:.3f} s, {TRAIN_BATCH * TRAIN_SEQ / steady:.0f} "
+          + f" s; steady {steady:.3f} s, {batch * TRAIN_SEQ / steady:.0f} "
           f"tok/s, {flops / steady / 1e12:.1f} TFLOP/s of 6 N D; peak memory "
           f"{peak / 1e9:.3f} GB", flush=True)
     print(f"profile {cfg.name} train step: device busy {busy:.2f} ms of "
@@ -2690,22 +3014,41 @@ def train_phase(served_sums: dict) -> dict:
           f"idle share {1 - busy / (steady * 1e3):.3f}", flush=True)
     for name, ms, n in top:
         print(f"    {ms:9.3f} ms  {n:5d}x  {name}", flush=True)
+    print("  by op (the op's own kernels' device time):", flush=True)
+    for name, ms, n in ops:
+        print(f"    {ms:9.3f} ms  {n:5d}x  {name}", flush=True)
     del state
     free_memory()
-    return dict(arch=cfg.name, microbatches=mb, batch=TRAIN_BATCH,
-                seq=TRAIN_SEQ, steps=log, steady_wall_s=steady,
-                tok_s=TRAIN_BATCH * TRAIN_SEQ / steady, flops_6nd=flops,
+    return dict(arch=cfg.name, n_layers=cfg.n_layers, microbatches=mb,
+                batch=batch, seq=TRAIN_SEQ, steps=log, steady_wall_s=steady,
+                tok_s=batch * TRAIN_SEQ / steady, flops_6nd=flops,
                 n_params=n_params, peak_memory_bytes=peak,
                 profile=dict(busy_ms=busy, profiled_wall_ms=wall_p, top=top,
-                             idle_share=1 - busy / (steady * 1e3)),
+                             ops=ops, idle_share=1 - busy / (steady * 1e3)),
                 launches_per_step=want, paths=paths)
+
+
+def mamba_train_phase() -> dict:
+    """Phase (d'): falcon-mamba-7b at full width cut to MAMBA_TRAIN_LAYERS
+    layers, through ``train_phase`` (and (b') on its first
+    TRAIN_PATHS_LAYERS layers); its peak memory must stay under
+    MAMBA_PEAK_GB."""
+    run = train_phase(MAMBA_ARCH, MAMBA_TRAIN_BATCH,
+                      n_layers=MAMBA_TRAIN_LAYERS)
+    if run["peak_memory_bytes"] > MAMBA_PEAK_GB * 1e9:
+        raise AssertionError(f"train {MAMBA_ARCH} at {MAMBA_TRAIN_LAYERS} "
+                             f"layers: peak "
+                             f"{run['peak_memory_bytes'] / 1e9:.3f} GB over "
+                             f"{MAMBA_PEAK_GB} GB")
+    return run
 
 
 def launcher_train_phase() -> dict:
     """Phase (e): ``python -m repro_torch.launch.train --arch granite-3-2b
     --reduced --steps 8`` into a temporary ``--ckpt``, then again: the
     second run must resume from step 8 and end with the first run's state
-    (the launcher's ``state sha256`` line)."""
+    (the launcher's ``state sha256`` line). Then ``--arch falcon-mamba-7b
+    --reduced --steps 8`` once, on CUDA."""
     import tempfile
 
     outs = []
@@ -2733,7 +3076,20 @@ def launcher_train_phase() -> dict:
                              f"differs from the first run's: {digests}")
     print(f"train launcher: second run {resumed}, state bit-equal "
           f"(sha256 {digests[0][:16]})", flush=True)
-    return dict(digest=digests[0], out=outs)
+    with tempfile.TemporaryDirectory() as tmp:   # the Mamba arch, on CUDA
+        r = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+             MAMBA_ARCH, "--reduced", "--steps", str(LAUNCHER_TRAIN_STEPS),
+             "--ckpt", os.path.join(tmp, "ckpt")],
+            capture_output=True, text=True, timeout=600, env=env, cwd=ROOT)
+    print(r.stdout, end="", flush=True)
+    done = f"done: {LAUNCHER_TRAIN_STEPS} steps"
+    if r.returncode or f"arch={MAMBA_ARCH}" not in r.stdout \
+            or "device=cuda" not in r.stdout or done not in r.stdout:
+        raise AssertionError(f"train launcher --arch {MAMBA_ARCH} exited "
+                             f"{r.returncode} without {done!r} on cuda:\n"
+                             f"{r.stderr[-4000:]}")
+    return dict(digest=digests[0], out=outs, mamba_out=r.stdout)
 
 
 def train_phases(served_sums: dict) -> dict:
@@ -2754,22 +3110,27 @@ def train_phases(served_sums: dict) -> dict:
 
     mb = settings_for(TRAIN_ARCH).microbatches
     bwd = timed("a", flash_bwd_phase)
+    scan_bwd = timed("a'", scan_bwd_phase)
     reduced = timed("c", lambda: {n: reduced_train_vs_cpu(n)
                                   for n in TRAIN_REDUCED})
     mm = timed("matmul", train_matmul_phase, get_config(TRAIN_ARCH),
                TRAIN_BATCH // mb * TRAIN_SEQ)
-    run = timed("b+d", train_phase, served_sums)
+    run = timed("b+d", train_phase, TRAIN_ARCH, TRAIN_BATCH, served_sums)
+    mamba = timed("b'+d'", mamba_train_phase)
     launcher = timed("e", launcher_train_phase)
     print(f"train phases done in {time.perf_counter() - t0:.1f} s: "
           + ", ".join(f"({k}) {v:.1f} s" for k, v in seconds.items()),
           flush=True)
-    return dict(flash_bwd=bwd, reduced=reduced, matmul=mm, run=run,
-                launcher=launcher, seconds=seconds)
+    return dict(flash_bwd=bwd, scan_bwd=scan_bwd, reduced=reduced, matmul=mm,
+                run=run, mamba=mamba, launcher=launcher, seconds=seconds)
 
 
-def profile_device(fn):
+def profile_device(fn, ops: bool = False):
     """(device-busy ms, profiled wall ms, top kernels) of one run of ``fn``
-    under torch.profiler: the sum of the device time of every kernel."""
+    under torch.profiler: the sum of the device time of every kernel; with
+    ``ops`` also the top 16 ops by the device time of the kernels each op
+    launches itself (``self_device_time_total``: aten::mul, aten::add,
+    aten::copy_, ... name the elementwise passes that kernel names hide)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2784,8 +3145,14 @@ def profile_device(fn):
         raise AssertionError("the profiler saw no device activity")
     busy = sum(e.self_device_time_total for e in kern) / 1e3
     top = sorted(kern, key=lambda e: -e.self_device_time_total)[:8]
-    return busy, wall, [(e.key[:70], e.self_device_time_total / 1e3, e.count)
-                        for e in top]
+    top = [(e.key[:70], e.self_device_time_total / 1e3, e.count) for e in top]
+    if not ops:
+        return busy, wall, top
+    host = [e for e in prof.key_averages() if e.device_type == DeviceType.CPU
+            and e.self_device_time_total > 0]
+    by_op = sorted(host, key=lambda e: -e.self_device_time_total)[:16]
+    return busy, wall, top, [(e.key[:70], e.self_device_time_total / 1e3,
+                              e.count) for e in by_op]
 
 
 def summarize(name, weighted, launches, source, replaces):
@@ -2806,10 +3173,11 @@ def main(argv=None) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--only", choices=("flash-bwd",),
+    ap.add_argument("--only", choices=("flash-bwd", "scan-bwd"),
                     help="build the kernels and run only phase 8(a), the "
-                    "flash backward kernel's cases, with each launch's "
-                    "profiled device time (no result line)")
+                    "flash backward kernel's cases, or 8(a'), the scan "
+                    "backward kernel's, with each launch's profiled device "
+                    "time (no result line)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -2829,6 +3197,9 @@ def main(argv=None) -> int:
     print(build.ptxas_report(), flush=True)
     if args.only == "flash-bwd":
         flash_bwd_phase(split=True)
+        return 0
+    if args.only == "scan-bwd":
+        scan_bwd_phase(split=True)
         return 0
 
     t_run = time.perf_counter()
@@ -2967,9 +3338,24 @@ def main(argv=None) -> int:
         "none: no TPU kernel; the reference differentiates _attend "
         "(src/repro/models/attention.py:116) through XLA"),
         routes=bwd_routes))
+    scan_mb = next(r for r in trained["scan_bwd"]["cases"]
+                   if r["tag"] == "microbatch")
+    mamba_counts = trained["mamba"]["steps"][-1]["launches"]
+    kernels += [
+        summarize("mamba_scan@train", [(scan_mb["forward"],
+                                        mamba_counts["mamba_scan"]["cuda"])],
+                  mamba_counts["mamba_scan"]["cuda"], scan_src, scan_rep),
+        summarize("mamba_scan_bwd@train", [(scan_mb,
+                                            mamba_counts["mamba_scan_bwd"]["cuda"])],
+                  mamba_counts["mamba_scan_bwd"]["cuda"],
+                  "src/repro_torch/kernels/csrc/mamba_scan_bwd.cu",
+                  "none: no TPU kernel; the reference differentiates its "
+                  "chunked associative scan (src/repro/models/mamba.py:96) "
+                  "through XLA")]
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
-        json.dump(dict(card=card, torch=torch.__version__, matmul=mm_rows,
+        json.dump(dict(card=card, torch=torch.__version__,
+                       ptxas=build.ptxas_report(), matmul=mm_rows,
                        flash_attention=fa_rows, serve=served,
                        mamba_scan=scan_rows, matmul_mamba=mm_rows_m,
                        serve_mamba=served_m, paper_workloads=work,

@@ -22,7 +22,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 KERNELS = ("matmul", "flash_attention", "flash_attention_bwd", "mamba_scan",
-           "triad", "jacobi2d")
+           "mamba_scan_bwd", "triad", "jacobi2d")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -2,7 +2,9 @@
 //   h_t = exp(dt_t * A) (.) h_{t-1} + (dt_t * x_t) B_t ;   y_t = h_t . C_t
 // dt, x: (Bt,S,D); A: (D,N); B, C: (Bt,S,N); dt, A, B, C fp32; x and y
 // bf16 or fp32 (y in x's dtype). Also writes h_last (Bt,D,N) fp32, the
-// state after step S, which prefill hands to decode.
+// state after step S, which prefill hands to decode, and, given a
+// non-null h_chunks (training), the state before every 16th step for the
+// backward kernel (mamba_scan_bwd.cu).
 //
 // Replaces the TPU kernel `_scan_kernel` / `mamba_scan_pallas`
 // (src/repro/kernels/mamba_scan.py:27,51), which walks a sequential grid
@@ -28,7 +30,15 @@
 //     SM), so the MUFUs never wait on a dependent chain.
 //   * A's slice is scaled by log2(e) once, when it is loaded; each state
 //     then takes one `ex2.approx.ftz.f32` (a single MUFU.EX2, relative
-//     error about 2^-22, far inside the checks' 2e-3) of dt * a'.
+//     error about 2^-22, far inside the checks' 2e-3) of dt * a'. The
+//     training instance (TRAINING, chosen by a non-null h_chunks) writes
+//     the chunk states and takes libdevice's expf(dt * a) instead, as the
+//     backward kernel's recompute does: ex2.approx's error, compounded
+//     over the 1 / (dt |A|) steps a state remembers, put the grads 3 to
+//     4x farther from an fp64 truth than the plain version's on
+//     falcon-mamba-7b's inputs, and expf brings them level. Serving's
+//     instance keeps ex2.approx and stores nothing more, so its y and
+//     h_last keep their bits (tools/scan_digest.py compares two trees).
 //   * What one step shares is paid once per lane, not per state: dt, x,
 //     u = dt * x, and B's and C's slices as 16-byte shared-memory loads.
 //     y's G partial sums are reduce-scattered over the lanes every G
@@ -65,95 +75,18 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mamba_scan.cuh"
 #include "mma_bf16.cuh"
 #include "sm90.cuh"
 
 namespace {
 
+using namespace scan;
+
 constexpr int CONSUMERS = 256;            // consumer threads a block
 constexpr int THREADS = CONSUMERS + 32;   // and one producer warp
 constexpr int RESIDENT = 4;               // blocks an SM is planned for
 constexpr int SMEM_BLOCK = 232448;        // what one block may use (227 KB)
-constexpr float LOG2E = 1.4426950408889634f;
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
-template <typename E>
-__device__ __forceinline__ E zero() {
-  return E(0.f);
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 zero<__nv_bfloat16>() {
-  return __float2bfloat16_rn(0.f);
-}
-
-// 2^x as one MUFU.EX2; subnormal inputs and results flush to zero
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// The mbarrier's current phase also waits for this thread's cp.async
-// copies issued so far (the pending count is raised now and lowered when
-// they land); the thread still arrives itself.
-__device__ __forceinline__ void cp_async_mbar_arrive(uint64_t* bar) {
-  asm volatile("cp.async.mbarrier.arrive.shared::cta.b64 [%0];\n" ::"r"(
-                   sm90::smem_u32(bar))
-               : "memory");
-}
-
-// One operand's time tile into shared memory as [rows][W]: row r is
-// global row `row0 + r` (of pitch `ld` elements) from column `c0`; zeros
-// past `valid_rows` rows and past column `cols`. 16-byte copies when
-// `vec` (the rows are 16-byte aligned), else element by element.
-template <int W, typename E>
-__device__ __forceinline__ void copy_tile(E* dst, const E* src,
-                                          long long row0, int rows,
-                                          int valid_rows, int ld, int c0,
-                                          int cols, bool vec, int lane) {
-  if (vec) {
-    constexpr int V = 16 / sizeof(E);
-    constexpr int CW = W / V;  // 16-byte chunks a row
-    for (int i = lane; i < rows * CW; i += 32) {
-      const int r = i / CW, q = i % CW;
-      const int n = r < valid_rows ? min(max(cols - c0 - q * V, 0), V) : 0;
-      const E* s = n ? src + (row0 + r) * ld + c0 + q * V : src;
-      cp_async16(sm90::smem_u32(dst + r * W + q * V), s, n * (int)sizeof(E));
-    }
-  } else {
-    for (int i = lane; i < rows * W; i += 32) {
-      const int r = i / W, c = i % W;
-      dst[i] = (r < valid_rows && c0 + c < cols) ? src[(row0 + r) * ld + c0 + c]
-                                                 : zero<E>();
-    }
-  }
-}
-
-// Sums p (one partial a step, for G steps) over the G lanes of a channel
-// and returns the sum of step g to lane g: log2(G) rounds, each halving
-// the steps a lane holds. The order of every addition is fixed.
-template <int G>
-__device__ __forceinline__ float reduce_scatter(float (&p)[G], int g) {
-#pragma unroll
-  for (int m = G / 2; m >= 1; m /= 2) {
-    const bool hi = g & m;
-#pragma unroll
-    for (int i = 0; i < m; ++i) {
-      const float send = hi ? p[i] : p[i + m];
-      const float keep = hi ? p[i + m] : p[i];
-      p[i] = keep + __shfl_xor_sync(0xffffffffu, send, m);
-    }
-  }
-  return p[0];
-}
-
 // bytes of one ring stage: dt and x for CB channels, B and C for NP
 // states, `tt` time steps
 template <int NP, int CB, typename T>
@@ -161,17 +94,18 @@ __host__ __device__ constexpr int stage_bytes(int tt) {
   return tt * (CB * (4 + (int)sizeof(T)) + 2 * NP * 4);
 }
 
-template <int NP, int SPL, typename T>
+template <int NP, int SPL, typename T, bool TRAINING>
 __global__ void __launch_bounds__(THREADS, RESIDENT)
 mamba_scan(const float* __restrict__ dt, const float* __restrict__ A,
            const float* __restrict__ Bm, const float* __restrict__ Cm,
            const T* __restrict__ x, T* __restrict__ y,
-           float* __restrict__ h_last, int S, int D, int N, int TT,
-           int stages) {
+           float* __restrict__ h_last, float* __restrict__ h_chunks, int S,
+           int D, int N, int TT, int stages) {
   constexpr int G = NP / SPL;       // lanes a channel
   constexpr int CB = CONSUMERS / G;  // channels a block
   constexpr int UNROLL = G >= 8 ? 1 : 8 / G;  // groups of G steps
-  static_assert(SPL % 4 == 0 && NP % SPL == 0 && 32 % G == 0, "plan");
+  static_assert(SPL % 4 == 0 && NP % SPL == 0 && 32 % G == 0 &&
+                CHUNK % G == 0, "plan");
   extern __shared__ __align__(16) unsigned char smem[];
   const int sbytes = stage_bytes<NP, CB, T>(TT);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + stages * sbytes);
@@ -230,12 +164,19 @@ mamba_scan(const float* __restrict__ dt, const float* __restrict__ A,
 #pragma unroll
   for (int s = 0; s < SPL; ++s) {
     const int n = g * SPL + s;
-    a[s] = (active && n < N) ? A[(size_t)d * N + n] * LOG2E : 0.f;
+    const float an = (active && n < N) ? A[(size_t)d * N + n] : 0.f;
+    a[s] = TRAINING ? an : an * LOG2E;
     h[s] = 0.f;
   }
   // lane g stores y of steps g, g + G, g + 2G, ...
   T* yp = y + ((size_t)b * S + g) * D + d;
   int left = S - g;  // steps from yp's on
+  // training: the state before every CHUNK-th step, (Bt, ceil(S /
+  // CHUNK), D, NP), this lane's SPL states as 16-byte stores
+  const int nch = (S + CHUNK - 1) / CHUNK;
+  float* hcp = TRAINING && active
+                   ? h_chunks + ((size_t)b * nch * D + d) * NP + g * SPL
+                   : nullptr;
 
   for (int k = 0; k < ntiles; ++k) {
     const int slot = k % stages;
@@ -247,6 +188,14 @@ mamba_scan(const float* __restrict__ dt, const float* __restrict__ A,
     const float* sC = sB + TT * NP;
 #pragma unroll UNROLL
     for (int r0 = 0; r0 < TT; r0 += G) {
+      const int t = k * TT + r0;   // CHUNK % G == 0: every chunk starts a group
+      if (TRAINING && hcp != nullptr && t % CHUNK == 0 && t < S) {
+        float* o = hcp + (size_t)(t / CHUNK) * D * NP;
+#pragma unroll
+        for (int s = 0; s < SPL; s += 4)
+          *reinterpret_cast<float4*>(o + s) =
+              make_float4(h[s], h[s + 1], h[s + 2], h[s + 3]);
+      }
       float p[G];
 #pragma unroll
       for (int j = 0; j < G; ++j) {
@@ -264,7 +213,8 @@ mamba_scan(const float* __restrict__ dt, const float* __restrict__ A,
         float acc = 0.f;
 #pragma unroll
         for (int s = 0; s < SPL; ++s) {
-          h[s] = fmaf(ex2(dtv * a[s]), h[s], u * bv[s]);
+          h[s] = fmaf(TRAINING ? expf(dtv * a[s]) : ex2(dtv * a[s]), h[s],
+                      u * bv[s]);
           acc = fmaf(h[s], cv[s], acc);
         }
         p[j] = acc;
@@ -290,8 +240,9 @@ mamba_scan(const float* __restrict__ dt, const float* __restrict__ A,
 template <int NP, int SPL, typename T>
 cudaError_t launch(const void* dt, const void* A, const void* B,
                    const void* C, const void* x, void* y, void* h_last,
-                   int Bt, int S, int D, int N, int channels, int TT,
-                   int stages, int smem, long long grid, cudaStream_t s) {
+                   void* h_chunks, int Bt, int S, int D, int N, int channels,
+                   int TT, int stages, int smem, long long grid,
+                   cudaStream_t s) {
   constexpr int G = NP / SPL;
   constexpr int CB = CONSUMERS / G;
   const long long nblk = (D + CB - 1) / CB;
@@ -299,11 +250,15 @@ cudaError_t launch(const void* dt, const void* A, const void* B,
       smem != stages * (stage_bytes<NP, CB, T>(TT) + 16) || smem > SMEM_BLOCK ||
       grid != (long long)Bt * nblk || grid > 0x7fffffffLL)
     return cudaErrorInvalidValue;
-  auto kern = mamba_scan<NP, SPL, T>;
+  auto kern = h_chunks != nullptr ? mamba_scan<NP, SPL, T, true>
+                                  : mamba_scan<NP, SPL, T, false>;
   // once per instance, outside any CUDA-graph capture of later calls: any
   // plan's shared memory, and the SM's whole carveout as shared memory so
   // that RESIDENT blocks fit
-  static cudaError_t attr = [&] {
+  // (cudaErrorNotReady: not set yet)
+  static cudaError_t attrs[2] = {cudaErrorNotReady, cudaErrorNotReady};
+  cudaError_t& attr = attrs[h_chunks != nullptr];
+  if (attr == cudaErrorNotReady) attr = [&] {
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BLOCK);
     if (e != cudaSuccess) return e;
@@ -316,20 +271,21 @@ cudaError_t launch(const void* dt, const void* A, const void* B,
       static_cast<const float*>(dt), static_cast<const float*>(A),
       static_cast<const float*>(B), static_cast<const float*>(C),
       static_cast<const T*>(x), static_cast<T*>(y),
-      static_cast<float*>(h_last), S, D, N, TT, stages);
+      static_cast<float*>(h_last), static_cast<float*>(h_chunks), S, D, N,
+      TT, stages);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch_for(int NP, int SPL, const void* dt, const void* A,
                        const void* B, const void* C, const void* x, void* y,
-                       void* h_last, int Bt, int S, int D, int N, int channels,
-                       int TT, int stages, int smem, long long grid,
-                       cudaStream_t s) {
+                       void* h_last, void* h_chunks, int Bt, int S, int D,
+                       int N, int channels, int TT, int stages, int smem,
+                       long long grid, cudaStream_t s) {
 #define REPRO_SCAN(np, spl)                                                  \
   if (NP == np && SPL == spl)                                                \
-    return launch<np, spl, T>(dt, A, B, C, x, y, h_last, Bt, S, D, N,        \
-                              channels, TT, stages, smem, grid, s);
+    return launch<np, spl, T>(dt, A, B, C, x, y, h_last, h_chunks, Bt, S, D, \
+                              N, channels, TT, stages, smem, grid, s);
   REPRO_SCAN(4, 4)
   REPRO_SCAN(8, 4)
   REPRO_SCAN(16, 4)
@@ -347,17 +303,20 @@ cudaError_t launch_for(int NP, int SPL, const void* dt, const void* A,
 // width NP, states a lane SPL, channels a block, the time tile, the ring's
 // stages, the dynamic shared memory in bytes and the grid; a plan that
 // does not match the instance returns cudaErrorInvalidValue unlaunched.
+// `h_chunks` is null (serving) or (Bt, ceil(S / 16), D, np) fp32 for the
+// states at the chunk starts that the backward kernel reads.
 extern "C" int repro_mamba_scan(const void* dt, const void* A, const void* B,
                                 const void* C, const void* x, void* y,
-                                void* h_last, int Bt, int S, int D, int N,
-                                int x_is_bf16, int np, int spl, int channels,
-                                int time_tile, int stages, int smem,
-                                long long grid, void* stream) {
+                                void* h_last, void* h_chunks, int Bt, int S,
+                                int D, int N, int x_is_bf16, int np, int spl,
+                                int channels, int time_tile, int stages,
+                                int smem, long long grid, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (x_is_bf16)
-    return launch_for<__nv_bfloat16>(np, spl, dt, A, B, C, x, y, h_last, Bt,
-                                     S, D, N, channels, time_tile, stages,
-                                     smem, grid, s);
-  return launch_for<float>(np, spl, dt, A, B, C, x, y, h_last, Bt, S, D, N,
-                           channels, time_tile, stages, smem, grid, s);
+    return launch_for<__nv_bfloat16>(np, spl, dt, A, B, C, x, y, h_last,
+                                     h_chunks, Bt, S, D, N, channels,
+                                     time_tile, stages, smem, grid, s);
+  return launch_for<float>(np, spl, dt, A, B, C, x, y, h_last, h_chunks, Bt,
+                           S, D, N, channels, time_tile, stages, smem, grid,
+                           s);
 }

@@ -1,14 +1,19 @@
 """Selective scan on the card: the Mamba-1 recurrence with an fp32 state,
-returning y and the final state.
+returning y and the final state, and its backward pass.
 
 The kernel (``csrc/mamba_scan.cu``) replaces ``_scan_kernel`` /
 ``mamba_scan_pallas`` (``repro/kernels/mamba_scan.py:27,51``). It takes any
 S and D and N <= 64, and it also returns ``h_last``, which the Pallas
-kernel keeps in scratch: the model's prefill hands it to decode. A tensor
-on the CPU takes the plain version (``ref.mamba_scan_ref``); a CUDA tensor
-launches the kernel or raises. ``plan`` decides every launch parameter
-before the launch, and the C side refuses a plan that does not match the
-instance it picks. ``launches`` counts kernel launches.
+kernel keeps in scratch: the model's prefill hands it to decode. For
+training it also returns the state at the start of every CHUNK steps,
+which the backward kernel (``csrc/mamba_scan_bwd.cu``, ``mamba_scan_bwd``;
+no TPU counterpart: the reference differentiates its scan through XLA)
+recomputes each chunk from. A tensor on the CPU takes the plain version
+(``ref.mamba_scan_ref``, ``ref.mamba_scan_bwd_ref``); a CUDA tensor
+launches the kernel or raises. ``plan`` and ``plan_bwd`` decide every
+launch parameter before the launch, and the C side refuses a plan that
+does not match the instance it picks. ``launches`` and ``bwd_launches``
+count kernel launches (a backward call's two kernels count once).
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ import torch
 from repro_torch.kernels import build, ref
 
 launches = 0
+bwd_launches = 0
 
 MAX_N = 64   # the largest state width instantiated in csrc/mamba_scan.cu
 # the plan's constants, as csrc/mamba_scan.cu has them
@@ -35,7 +41,16 @@ SMEM_SM = 228 * 1024
 SMEM_BLOCK = 227 * 1024
 SMEM_RESERVED = 1024
 MAX_GRID = 2 ** 31 - 1   # blocks along the grid's x dimension
+# the backward kernel: states saved every CHUNK steps (csrc/mamba_scan.cuh),
+# one block an SM, the ring's stages best first, and the second kernel's
+# blocks (SUM_THREADS threads each, at most SUM_BLOCKS)
+CHUNK = 16
+WARPS = CONSUMERS // 32
+BWD_STAGES = (3, 2)
+SUM_THREADS = 256
+SUM_BLOCKS = 132 * 8
 _fn = None
+_bwd_fn = None
 
 
 @dataclass(frozen=True)
@@ -86,7 +101,7 @@ def _kernel():
     global _fn
     if _fn is None:
         fn = build.load("mamba_scan").repro_mamba_scan
-        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 11
+        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 11
                        + [ctypes.c_longlong, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _fn = fn
@@ -121,15 +136,21 @@ def check_operands(dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
     return p
 
 
+def chunk_states_shape(Bt: int, S: int, D: int, N: int) -> tuple:
+    """The shape of the forward's saved states: the state before every
+    CHUNK-th step, (Bt, ceil(S / CHUNK), D, NP), fp32."""
+    return (Bt, -(-S // CHUNK), D, plan(Bt, S, D, N, 2).np)
+
+
 def mamba_scan(dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
-               C: torch.Tensor, x: torch.Tensor
-               ) -> tuple[torch.Tensor, torch.Tensor]:
+               C: torch.Tensor, x: torch.Tensor, chunk_states: bool = False):
     """dt, x: (Bt,S,D); A: (D,N); B, C: (Bt,S,N) -> (y (Bt,S,D) in x's
-    dtype, h_last (Bt,D,N) fp32). dt, A, B and C are fp32; x is fp32 or
-    bf16; all contiguous."""
+    dtype, h_last (Bt,D,N) fp32), and with ``chunk_states`` (CUDA only)
+    also the states ``mamba_scan_bwd`` reads (``chunk_states_shape``).
+    dt, A, B and C are fp32; x is fp32 or bf16; all contiguous."""
     global launches
     ts = (dt, A, B, C, x)
-    if all(t.device.type == "cpu" for t in ts):
+    if all(t.device.type == "cpu" for t in ts) and not chunk_states:
         return ref.mamba_scan_ref(dt, A, B, C, x)
     if not all(t.is_cuda and t.device == x.device for t in ts):
         raise ValueError("mamba_scan: dt, A, B, C, x must be on one CUDA device")
@@ -138,10 +159,14 @@ def mamba_scan(dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
     N = A.shape[1]
     y = torch.empty((Bt, S, D), dtype=x.dtype, device=x.device)
     h_last = torch.empty((Bt, D, N), dtype=torch.float32, device=x.device)
+    hc = (torch.empty(chunk_states_shape(Bt, S, D, N), dtype=torch.float32,
+                      device=x.device) if chunk_states else None)
+    out = (y, h_last, hc) if chunk_states else (y, h_last)
     if Bt == 0 or D == 0:
-        return y, h_last
+        return out
     err = _kernel()(dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(),
                     x.data_ptr(), y.data_ptr(), h_last.data_ptr(),
+                    0 if hc is None else hc.data_ptr(),
                     Bt, S, D, N, int(x.dtype == torch.bfloat16), p.np,
                     p.states_per_lane, p.channels, p.time_tile, p.stages,
                     p.smem_bytes, p.grid,
@@ -149,4 +174,138 @@ def mamba_scan(dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
     if err:
         raise RuntimeError(f"mamba_scan kernel launch failed: cudaError {err}")
     launches += 1
-    return y, h_last
+    return out
+
+
+# ---------------------------------------------------------------- backward
+
+@dataclass(frozen=True)
+class BwdPlan:
+    """One call of the backward kernels: the forward's split of NP states
+    over ``lanes`` lanes of ``states_per_lane`` and ``channels`` a block,
+    ``chunks`` chunks of ``chunk`` steps walked in reverse through a ring
+    of ``stages`` tiles, ``smem_bytes`` of shared memory (the ring and two
+    chunks of the warps' dB and dC sums), ``grid`` blocks of ``threads``,
+    the partial sums' workspace (``ws_bc_floats`` of dB and dC,
+    ``ws_a_floats`` of dA) and the summing kernel's ``sum_grid`` blocks."""
+    np: int
+    lanes: int
+    states_per_lane: int
+    channels: int
+    chunk: int
+    chunks: int
+    stages: int
+    threads: int
+    smem_bytes: int
+    grid: int
+    blocks_d: int
+    ws_bc_floats: int
+    ws_a_floats: int
+    sum_grid: int
+
+
+def plan_bwd(Bt: int, S: int, D: int, N: int, x_bytes: int) -> BwdPlan:
+    """The backward kernels' launch for dt, x, dy (Bt, S, D), N states and
+    x of ``x_bytes`` a value: the forward's lanes and channels a block;
+    the deepest ring of CHUNK-step tiles (dt, x, dy, B, C) that fits one
+    block's shared memory beside the warps' sums; one workspace row of dB
+    and dC a channel block and of dA a batch row."""
+    fwd = plan(Bt, S, D, N, x_bytes)
+    np_, channels = fwd.np, fwd.channels
+    step = channels * (4 + 2 * x_bytes) + 2 * np_ * 4   # bytes a step
+    red = 2 * CHUNK * WARPS * 2 * np_ * 4
+    for stages in BWD_STAGES:
+        smem = stages * (CHUNK * step + 16) + red
+        if smem <= SMEM_BLOCK:
+            break
+    blocks_d = -(-D // channels)
+    n_out = Bt * S * 2 * N + D * N
+    return BwdPlan(np=np_, lanes=fwd.lanes, states_per_lane=STATES_PER_LANE,
+                   channels=channels, chunk=CHUNK, chunks=-(-S // CHUNK),
+                   stages=stages, threads=THREADS, smem_bytes=smem,
+                   grid=Bt * blocks_d, blocks_d=blocks_d,
+                   ws_bc_floats=blocks_d * Bt * S * 2 * N,
+                   ws_a_floats=Bt * D * N,
+                   sum_grid=max(1, min(SUM_BLOCKS, -(-n_out // SUM_THREADS))))
+
+
+def _bwd_kernel():
+    global _bwd_fn
+    if _bwd_fn is None:
+        fn = build.load("mamba_scan_bwd").repro_mamba_scan_bwd
+        fn.argtypes = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 11
+                       + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _bwd_fn = fn
+    return _bwd_fn
+
+
+def check_bwd_operands(dt, A, B, C, x, dy, dh_last, h_chunks) -> BwdPlan:
+    """Raises ValueError unless the backward kernel takes the operands: the
+    forward's (``check_operands``), dy like x, dh_last None or (Bt, D, N)
+    fp32, and the forward's saved states; returns the plan."""
+    check_operands(dt, A, B, C, x)
+    Bt, S, D = x.shape
+    N = A.shape[1]
+    if dy.dtype != x.dtype or dy.shape != x.shape or not dy.is_contiguous():
+        raise ValueError(f"mamba_scan_bwd: dy must be a contiguous {x.dtype} "
+                         f"{tuple(x.shape)}, got {dy.dtype} "
+                         f"{tuple(dy.shape)}")
+    if dh_last is not None and (dh_last.dtype != torch.float32
+                                or dh_last.shape != (Bt, D, N)
+                                or not dh_last.is_contiguous()):
+        raise ValueError(f"mamba_scan_bwd: dh_last must be a contiguous fp32 "
+                         f"{(Bt, D, N)}, got {dh_last.dtype} "
+                         f"{tuple(dh_last.shape)}")
+    want = chunk_states_shape(Bt, S, D, N)
+    if h_chunks is None or h_chunks.dtype != torch.float32 \
+            or tuple(h_chunks.shape) != want or not h_chunks.is_contiguous():
+        raise ValueError(f"mamba_scan_bwd: the kernel reads the forward's "
+                         f"chunk states, a contiguous fp32 {want}")
+    p = plan_bwd(Bt, S, D, N, x.element_size())
+    if p.grid > MAX_GRID:
+        raise ValueError(f"mamba_scan_bwd: {p.grid} blocks exceed the grid's "
+                         f"{MAX_GRID}")
+    return p
+
+
+def mamba_scan_bwd(dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
+                   C: torch.Tensor, x: torch.Tensor, dy: torch.Tensor,
+                   dh_last: torch.Tensor | None = None,
+                   h_chunks: torch.Tensor | None = None):
+    """The scan's backward pass: the forward's operands, dy like y, dh_last
+    (Bt,D,N) fp32 or None, and on the card the forward's ``chunk_states``
+    -> (d dt, dA, dB, dC, dx) in the operands' dtypes. CPU tensors take
+    ``ref.mamba_scan_bwd_ref`` (``h_chunks`` unused)."""
+    global bwd_launches
+    ts = [t for t in (dt, A, B, C, x, dy, dh_last, h_chunks) if t is not None]
+    if all(t.device.type == "cpu" for t in ts):
+        return ref.mamba_scan_bwd_ref(dt, A, B, C, x, dy, dh_last)
+    if not all(t.is_cuda and t.device == x.device for t in ts):
+        raise ValueError("mamba_scan_bwd: every operand must be on one CUDA "
+                         "device")
+    p = check_bwd_operands(dt, A, B, C, x, dy, dh_last, h_chunks)
+    Bt, S, D = x.shape
+    N = A.shape[1]
+    f32 = dict(dtype=torch.float32, device=x.device)
+    d_dt = torch.empty((Bt, S, D), **f32)
+    dx = torch.empty((Bt, S, D), dtype=x.dtype, device=x.device)
+    dB, dC = torch.empty((Bt, S, N), **f32), torch.empty((Bt, S, N), **f32)
+    if Bt == 0 or S == 0 or D == 0:
+        return d_dt, torch.zeros((D, N), **f32), dB, dC, dx
+    dA = torch.empty((D, N), **f32)
+    ws_bc = torch.empty(p.ws_bc_floats, **f32)
+    ws_a = torch.empty(p.ws_a_floats, **f32)
+    err = _bwd_kernel()(
+        dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(), x.data_ptr(),
+        dy.data_ptr(), 0 if dh_last is None else dh_last.data_ptr(),
+        h_chunks.data_ptr(), d_dt.data_ptr(), dA.data_ptr(), dB.data_ptr(),
+        dC.data_ptr(), dx.data_ptr(), ws_bc.data_ptr(), ws_a.data_ptr(),
+        Bt, S, D, N, int(x.dtype == torch.bfloat16), p.np,
+        p.states_per_lane, p.channels, p.chunk, p.stages, p.smem_bytes,
+        p.grid, p.sum_grid, torch.cuda.current_stream(x.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"mamba_scan_bwd kernel launch failed: cudaError "
+                           f"{err}")
+    bwd_launches += 1
+    return d_dt, dA, dB, dC, dx

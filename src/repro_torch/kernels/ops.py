@@ -6,13 +6,12 @@ raises); ``"torch"`` takes the plain version on any device, which is how
 the kernels are held against it on the card. Counterpart of
 ``repro/kernels/ops.py``, whose ``auto|pallas|jnp`` these mirror.
 
-Where an operand needs a gradient, ``matmul`` and ``flash_attention`` run
-as ``torch.autograd.Function``s whose backward passes take the same
-``impl``: the matmul's two gradient products are this ``matmul`` again
-(the hand-written kernel on the card), flash attention's is
-``flash_attention_bwd`` (its backward kernel on the card). The selective
-scan has no backward kernel yet, so a CUDA scan that needs a gradient
-raises.
+Where an operand needs a gradient, ``matmul``, ``flash_attention`` and
+``mamba_scan`` run as ``torch.autograd.Function``s whose backward passes
+take the same ``impl``: the matmul's two gradient products are this
+``matmul`` again (the hand-written kernel on the card), flash attention's
+is ``flash_attention_bwd`` and the selective scan's ``mamba_scan_bwd``
+(their backward kernels on the card).
 """
 
 from __future__ import annotations
@@ -125,18 +124,37 @@ def flash_attention(q, k, v, causal: bool = True, window: int = 0,
     return ref.flash_attention_ref(q, k, v, causal, window, scale)
 
 
-SCAN_BWD_ITEM = "ROADMAP.md Queue 1 item 13 (the scan's backward kernel)"
+class _MambaScan(torch.autograd.Function):
+    """The selective scan. Forward: on the card the scan kernel's training
+    instance, which also saves the state at every chunk start; on the CPU
+    the plain version. Backward: ``mamba_scan_bwd`` from those states (the
+    kernel on the card, ``mamba_scan_bwd_ref`` on the CPU); h_last's
+    gradient is zeros where h_last is unused."""
+
+    @staticmethod
+    def forward(ctx, dt, A, B, C, x):
+        if x.is_cuda:
+            y, h_last, hc = _scan.mamba_scan(dt, A, B, C, x, chunk_states=True)
+        else:
+            (y, h_last), hc = _scan.mamba_scan(dt, A, B, C, x), None
+        ctx.save_for_backward(dt, A, B, C, x, hc)
+        return y, h_last
+
+    @staticmethod
+    def backward(ctx, dy, dh_last):
+        dt, A, B, C, x, hc = ctx.saved_tensors
+        grads = _scan.mamba_scan_bwd(dt, A, B, C, x, dy.contiguous(),
+                                     dh_last.contiguous(), hc)
+        return tuple(g if need else None
+                     for g, need in zip(grads, ctx.needs_input_grad))
 
 
 def mamba_scan(dt, A, B, C, x, impl: str = "auto"):
     """Selective scan. dt, x: (Bt,S,D); A: (D,N); B, C: (Bt,S,N) -> (y
-    (Bt,S,D) in x's dtype, final state h_last (Bt,D,N) fp32). The kernel
-    has no backward pass: CUDA operands that need a gradient raise."""
+    (Bt,S,D) in x's dtype, final state h_last (Bt,D,N) fp32)."""
     if uses_kernel(x, impl):
         if _needs_grad(dt, A, B, C, x):
-            raise NotImplementedError(
-                f"the selective-scan kernel has no backward pass; training "
-                f"a Mamba layer on CUDA waits for {SCAN_BWD_ITEM}")
+            return _MambaScan.apply(dt, A, B, C, x)
         return _scan.mamba_scan(dt, A, B, C, x)
     return ref.mamba_scan_ref(dt, A, B, C, x)
 

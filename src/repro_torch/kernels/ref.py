@@ -139,6 +139,54 @@ def mamba_scan_ref(dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
     return ys.to(out_dtype), h
 
 
+def mamba_scan_bwd_ref(dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
+                       C: torch.Tensor, x: torch.Tensor, dy: torch.Tensor,
+                       dh_last: torch.Tensor | None = None):
+    """The backward pass of ``mamba_scan_ref``, written out: the forward's
+    states, then a reverse-time loop with an explicit fp32 state. With
+    a_t = exp(dt_t A), u_t = dt_t x_t and g_t the gradient of h_t,
+
+        g_t = dy_t C_t + a_{t+1} g_{t+1}   (g_S carries dh_last, or 0),
+        dC_t = sum_d dy_{t,d} h_{t,d},   dB_t = sum_d g_{t,d} u_{t,d},
+        du_t = sum_n g_{t,n} B_{t,n},    dx_t = dt_t du_t,
+        d dt_t = sum_n g_{t,n} A_n a_{t,n} h_{t-1,n} + x_t du_t,
+        dA = sum_{b,t} g_t dt_t a_t h_{t-1}.
+
+    dy: (Bt,S,D) like y; dh_last: (Bt,D,N) or None. Returns (d dt, dA,
+    dB, dC, dx) in the dtypes of dt, A, B, C and x."""
+    Bt, S, D = x.shape
+    f32 = torch.float32
+    Af, dtf, xf = A.float(), dt.float(), x.float()
+    Bf, Cf, dyf = B.float(), C.float(), dy.float()
+    hs = torch.empty((S, Bt, D, A.shape[1]), dtype=f32, device=x.device)
+    h = torch.zeros((Bt, D, A.shape[1]), dtype=f32, device=x.device)
+    for t in range(S):
+        h = torch.exp(dtf[:, t, :, None] * Af) * h \
+            + (dtf[:, t] * xf[:, t])[..., None] * Bf[:, t, None, :]
+        hs[t] = h
+    carry = (torch.zeros_like(h) if dh_last is None
+             else dh_last.to(f32).clone())
+    d_dt = torch.empty((Bt, S, D), dtype=f32, device=x.device)
+    dx = torch.empty((Bt, S, D), dtype=f32, device=x.device)
+    dB = torch.empty((Bt, S, A.shape[1]), dtype=f32, device=x.device)
+    dC = torch.empty_like(dB)
+    dA = torch.zeros_like(Af)
+    for t in reversed(range(S)):
+        dt_t, x_t, dy_t = dtf[:, t], xf[:, t], dyf[:, t]
+        a = torch.exp(dt_t[..., None] * Af)                     # (Bt,D,N)
+        g = dy_t[..., None] * Cf[:, t, None, :] + carry
+        dC[:, t] = torch.einsum("bd,bdn->bn", dy_t, hs[t])
+        dB[:, t] = torch.einsum("bdn,bd->bn", g, dt_t * x_t)
+        du = torch.einsum("bdn,bn->bd", g, Bf[:, t])
+        gah = g * a * (hs[t - 1] if t else torch.zeros_like(h))
+        d_dt[:, t] = torch.einsum("bdn,dn->bd", gah, Af) + x_t * du
+        dx[:, t] = dt_t * du
+        dA += (gah * dt_t[..., None]).sum(0)
+        carry = a * g
+    return (d_dt.to(dt.dtype), dA.to(A.dtype), dB.to(B.dtype), dC.to(C.dtype),
+            dx.to(x.dtype))
+
+
 def triad_alpha(alpha: float, dtype: torch.dtype) -> float:
     """alpha as the triad multiplies by it: rounded to fp32, as the Pallas
     launcher passes it, and for bf16 on to bf16 (``stream_triad.py:22``)."""

@@ -2,8 +2,9 @@
 
 It runs on CUDA unless given ``--device cpu``: every projection and the
 chunked LM head through the matmul kernel, whole-sequence attention
-through the flash kernel, and their backward passes through the same
-matmul kernel and the flash backward kernel. Fault tolerance
+through the flash kernel, Mamba layers through the scan kernel, and their
+backward passes through the same matmul kernel, the flash backward kernel
+and the scan's backward kernel. Fault tolerance
 (checkpoint/restart and straggler monitoring) is always on via the
 supervisor, with checkpoints under ``--ckpt``; a second run with the same
 ``--ckpt`` resumes from the latest one.
@@ -12,9 +13,7 @@ supervisor, with checkpoints under ``--ckpt``; a second run with the same
         --reduced --steps 50 --batch 8 --seq 64
 
 The reference's ``--production-mesh`` comes with ROADMAP.md Queue 1 item
-11. The selective-scan kernel has no backward pass yet, so
-``--arch falcon-mamba-7b`` on CUDA raises (``kernels/ops.py``
-``SCAN_BWD_ITEM``); on the CPU it trains on the plain scan.
+11.
 """
 
 from __future__ import annotations

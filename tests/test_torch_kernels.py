@@ -845,6 +845,207 @@ def test_mamba_scan_module_plans_without_a_cuda_toolkit():
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
 
 
+# ------------------------------------------------------- mamba scan backward
+
+def _scan_bwd_csrc() -> str:
+    path = os.path.join(os.path.dirname(tscan.__file__), "csrc",
+                        "mamba_scan_bwd.cu")
+    with open(path) as f:
+        return f.read()
+
+
+@pytest.mark.parametrize("dims", [(2, 37, 24, 4), (1, 200, 16, 16),
+                                  (3, 9, 8, 1), (2, 17, 12, 3)])
+@pytest.mark.parametrize("with_dh", [False, True], ids=["no-dh", "dh"])
+def test_mamba_scan_bwd_ref_matches_autograd(dims, with_dh):
+    """The written-out backward pass against torch autograd of
+    ``mamba_scan_ref``, fp32, with and without a gradient on h_last: the
+    same arithmetic in another order (1e-5)."""
+    Bt, S, D, N = dims
+    _, t = _scan_inputs(*dims)
+    rng = np.random.default_rng(4)
+    dy = torch.from_numpy(rng.standard_normal((Bt, S, D)).astype(np.float32))
+    dh = torch.from_numpy(rng.standard_normal((Bt, D, N)).astype(np.float32))
+    ins = [a.clone().requires_grad_() for a in t]
+    y, h_last = ref.mamba_scan_ref(*ins)
+    outs, cots = ((y, h_last), (dy, dh)) if with_dh else ((y,), (dy,))
+    want = torch.autograd.grad(outs, ins, cots)
+    got = ref.mamba_scan_bwd_ref(*t, dy, dh if with_dh else None)
+    for name, g, w, a in zip(("d_dt", "dA", "dB", "dC", "dx"), got, want, t):
+        assert g.dtype == a.dtype and g.shape == a.shape, name
+        np.testing.assert_allclose(_np(g), _np(w), rtol=1e-5,
+                                   atol=1e-5 * float(w.abs().max()),
+                                   err_msg=name)
+
+
+def test_mamba_scan_bwd_ref_takes_bf16_x():
+    """x and dy in bf16 as the model hands them over: dx comes back in
+    bf16, the rest in fp32, each within one bf16 rounding of the fp32
+    run on the same values."""
+    _, t = _scan_inputs(2, 40, 16, 4, "bf16")
+    dy = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (2, 40, 16)).astype(np.float32)).to(torch.bfloat16)
+    got = ref.mamba_scan_bwd_ref(*t, dy)
+    want = ref.mamba_scan_bwd_ref(*t[:4], t[4].float(), dy.float())
+    assert [g.dtype for g in got] == [torch.float32] * 4 + [torch.bfloat16]
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(_np(g), _np(w), rtol=1e-2,
+                                   atol=1e-2 * float(w.abs().max()))
+
+
+@pytest.mark.parametrize("x_bytes", [2, 4], ids=["bf16", "f32"])
+@pytest.mark.parametrize("case", _SCAN_PLAN_CASES,
+                         ids=[f"{c[0]}-{c[1]}x{c[2]}x{c[3]}x{c[4]}"
+                              for c in _SCAN_PLAN_CASES])
+def test_mamba_scan_bwd_plan(case, x_bytes):
+    """The backward kernel's plan: the forward's lanes and channels a
+    block and its grid; whole chunks of CHUNK steps covering S; the ring
+    (dt, x, dy, B, C of a chunk) and two chunks of the warps' dB and dC
+    sums within one block's shared memory; the workspace: one (Bt, S, 2,
+    N) slice of partial dB and dC a channel block and one (D, N) slice of
+    partial dA a batch row; the summing kernel's blocks cover its outputs
+    within SUM_BLOCKS; the chunk states (Bt, ceil(S / 16), D, NP)."""
+    _, Bt, S, D, N = case
+    p = tscan.plan_bwd(Bt, S, D, N, x_bytes)
+    f = tscan.plan(Bt, S, D, N, x_bytes)
+    assert (p.np, p.lanes, p.states_per_lane, p.channels, p.grid,
+            p.threads) == (f.np, f.lanes, f.states_per_lane, f.channels,
+                           f.grid, f.threads)
+    assert p.blocks_d == -(-D // p.channels) and p.grid == Bt * p.blocks_d
+    assert p.chunk == tscan.CHUNK == 16 and p.chunk % p.lanes == 0
+    assert p.chunks * p.chunk >= S > (p.chunks - 1) * p.chunk
+    stage = p.chunk * (p.channels * (4 + 2 * x_bytes) + 2 * p.np * 4)
+    red = 2 * p.chunk * (tscan.CONSUMERS // 32) * 2 * p.np * 4
+    assert p.stages in (2, 3)
+    assert p.smem_bytes == p.stages * (stage + 16) + red <= 227 * 1024
+    if p.stages == 2:
+        assert 3 * (stage + 16) + red > 227 * 1024
+    assert p.ws_bc_floats == p.blocks_d * Bt * S * 2 * N
+    assert p.ws_a_floats == Bt * D * N
+    outs = Bt * S * 2 * N + D * N
+    assert 1 <= p.sum_grid <= tscan.SUM_BLOCKS
+    assert p.sum_grid * tscan.SUM_THREADS >= min(outs, tscan.SUM_BLOCKS
+                                                 * tscan.SUM_THREADS)
+    assert tscan.chunk_states_shape(Bt, S, D, N) == (Bt, p.chunks, D, p.np)
+
+
+def test_mamba_scan_bwd_plan_at_the_microbatch_shape():
+    """falcon-mamba-7b's training microbatch (1, 1024, 8192, 16), x bf16:
+    128 blocks of 64 channels, 64 chunks through 3 stages; its chunk
+    states are 32 MiB, the dB and dC partials 16 MiB."""
+    p = tscan.plan_bwd(1, 1024, 8192, 16, 2)
+    assert (p.lanes, p.channels, p.grid, p.chunks, p.stages) == (4, 64, 128,
+                                                                  64, 3)
+    assert 4 * int(np.prod(tscan.chunk_states_shape(1, 1024, 8192, 16))) \
+        == 32 * 2 ** 20
+    assert 4 * p.ws_bc_floats == 16 * 2 ** 20
+
+
+def test_mamba_scan_bwd_plan_matches_the_instances_in_csrc():
+    """Every backward plan names an (NP, SPL) instance the C side
+    instantiates, and the C side's constants are the plan's."""
+    src = _scan_bwd_csrc()
+    instances = {(int(a), int(b)) for a, b in
+                 re.findall(r"REPRO_SCAN_BWD\((\d+), (\d+)\)\n", src)}
+    assert {(tscan.plan_bwd(1, 8, 64, n, 2).np, tscan.STATES_PER_LANE)
+            for n in range(1, tscan.MAX_N + 1)} == instances
+    for name, value in (("CONSUMERS", tscan.CONSUMERS),
+                        ("SMEM_BLOCK", tscan.SMEM_BLOCK),
+                        ("SUM_THREADS", tscan.SUM_THREADS)):
+        assert re.search(rf"constexpr int {name} = {value};", src), name
+    head = os.path.join(os.path.dirname(tscan.__file__), "csrc",
+                        "mamba_scan.cuh")
+    with open(head) as f:
+        assert re.search(rf"constexpr int CHUNK = {tscan.CHUNK};", f.read())
+
+
+def test_mamba_scan_bwd_source_has_no_atomics():
+    """Every block writes its own partial sums and a second kernel adds
+    them in a fixed order: the source and the headers it includes hold no
+    atomic operation and no reducing store or copy."""
+    csrc = os.path.join(os.path.dirname(tscan.__file__), "csrc")
+    src = _scan_bwd_csrc()
+    heads = re.findall(r'#include "(\w+\.cuh)"', src)
+    assert set(heads) == {"mamba_scan.cuh", "mma_bf16.cuh", "sm90.cuh"}
+    for text in [src] + [open(os.path.join(csrc, h)).read() for h in heads]:
+        assert "atomic" not in text.lower()
+        assert not re.search(r"\bred\.|cp\.reduce", text)
+
+
+def _scan_bwd_meta(Bt, S, D, N, x_dtype=torch.bfloat16, dh=True):
+    m = _scan_meta(Bt, S, D, N, x_dtype)
+    dy = torch.empty((Bt, S, D), dtype=x_dtype, device="meta")
+    dh_last = (torch.empty((Bt, D, N), device="meta") if dh else None)
+    hc = torch.empty(tscan.chunk_states_shape(Bt, S, D, N), device="meta")
+    return m + (dy, dh_last, hc)
+
+
+def test_mamba_scan_bwd_checks_take_the_model_operands():
+    """The microbatch's operands, with and without dh_last, pass and give
+    ``plan_bwd``'s plan; nothing is built."""
+    for dh in (True, False):
+        p = tscan.check_bwd_operands(*_scan_bwd_meta(1, 1024, 8192, 16, dh=dh))
+        assert p == tscan.plan_bwd(1, 1024, 8192, 16, 2)
+    assert tscan._bwd_fn is None
+
+
+def _swap(i, new):
+    return lambda: tuple(new if j == i else t for j, t in
+                         enumerate(_scan_bwd_meta(1, 40, 8, 4)))
+
+
+@pytest.mark.parametrize("case", [
+    ("fp16 x", lambda: _scan_bwd_meta(1, 40, 8, 4, torch.float16), "fp32 or bf16"),
+    ("dy dtype", _swap(5, torch.empty((1, 40, 8), device="meta")), "dy must"),
+    ("dy shape", _swap(5, torch.empty((1, 41, 8), dtype=torch.bfloat16,
+                                      device="meta")), "dy must"),
+    ("dy strided", _swap(5, torch.empty((1, 8, 40), dtype=torch.bfloat16,
+                                        device="meta").transpose(1, 2)),
+     "dy must"),
+    ("dh shape", _swap(6, torch.empty((1, 8, 5), device="meta")), "dh_last"),
+    ("dh bf16", _swap(6, torch.empty((1, 8, 4), dtype=torch.bfloat16,
+                                     device="meta")), "dh_last"),
+    ("no chunk states", _swap(7, None), "chunk states"),
+    ("chunk states short", _swap(7, torch.empty((1, 2, 8, 4), device="meta")),
+     "chunk states"),
+    ("N=65", lambda: _scan_bwd_meta(1, 4, 8, 65), "1 <= N"),
+], ids=lambda c: c[0])
+def test_mamba_scan_bwd_checks_raise(case):
+    """What the backward kernel does not take raises ValueError before
+    anything is built or launched."""
+    _, make, match = case
+    before = tscan.bwd_launches
+    with pytest.raises(ValueError, match=match):
+        tscan.check_bwd_operands(*make())
+    assert tscan.bwd_launches == before and tscan._bwd_fn is None
+
+
+def test_mamba_scan_bwd_wrapper_raises_off_the_cpu_without_a_card():
+    """Operands that are not all on the CPU must all be on one CUDA
+    device: meta tensors raise ValueError instead of taking the plain
+    version, and nothing is built or counted; so does a forward asked for
+    chunk states on the CPU."""
+    tscan.bwd_launches = 0
+    with pytest.raises(ValueError, match="one CUDA device"):
+        tscan.mamba_scan_bwd(*_scan_bwd_meta(1, 40, 8, 4))
+    _, t = _scan_inputs(1, 8, 4, 2)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        tscan.mamba_scan(*t, chunk_states=True)
+    assert tscan.bwd_launches == 0 and tscan._bwd_fn is None
+
+
+def test_mamba_scan_bwd_cpu_tensors_take_the_plain_version():
+    """CPU tensors give ``mamba_scan_bwd_ref``'s bits, the chunk states
+    unused, and count no launch."""
+    tscan.bwd_launches = 0
+    _, t = _scan_inputs(2, 20, 8, 4)
+    dy = torch.ones(2, 20, 8)
+    got = tscan.mamba_scan_bwd(*t, dy)
+    for g, w in zip(got, ref.mamba_scan_bwd_ref(*t, dy)):
+        assert torch.equal(g, w)
+    assert tscan.bwd_launches == 0 and tscan._bwd_fn is None
+
+
 # ------------------------------------------------------------ STREAM triad
 # The plain triad is held to the Pallas kernel bit for bit: in fp32 XLA
 # contracts the kernel body into one FMA (the JAX triad_ref rounds twice);

@@ -1,11 +1,14 @@
 """The port's training path against the JAX package, on the CPU: the
 optimizers (repro_torch.optim), the loss (cross_entropy,
 chunked_cross_entropy, loss_fn), the grads of ``loss_fn`` on the reduced
-configs of the eight non-Mamba archs, one ``make_train_step`` with 1 and 2
-microbatches, the autograd Functions of ``kernels/ops.py`` and the flash
-backward pass's plain version, the per-period recompute, the scan's
-guard, and the train launcher. Inputs are made with numpy from a seed and
-fed to both packages.
+configs of all nine archs, one ``make_train_step`` with 1 and 2
+microbatches on gemma3-1b and on falcon-mamba-7b, the autograd Functions
+of ``kernels/ops.py`` (the scan's against ``jax.vjp`` of the reference's
+``mamba_scan_ref``) and the plain backward passes of flash attention and
+the scan, the per-period recompute, and the train launcher. Inputs are
+made with numpy from a seed and fed to both packages. falcon-mamba-7b runs
+200 steps: past the reference's 128-step scan chunk and not a multiple of
+it, so that its padded, masked tail runs.
 
 Grads are held by ``tests/test_torch_mamba.py``'s rule: within 2e-2 of
 ``want`` relative to each element and to the largest |want| of the leaf
@@ -28,6 +31,7 @@ import ml_dtypes  # noqa: E402
 
 from repro.configs import get_reduced as jget_reduced  # noqa: E402
 from repro.data import modality_stub as jmodality_stub  # noqa: E402
+from repro.kernels import ref as jref  # noqa: E402
 from repro.launch import steps as jsteps  # noqa: E402
 from repro.models import forward as jforward  # noqa: E402
 from repro.models import init_params as jinit_params  # noqa: E402
@@ -44,10 +48,13 @@ from repro_torch.models import transformer as tm  # noqa: E402
 TOL = 2e-2
 B, S = 2, 24
 GATE = 0.5
-# the eight non-Mamba archs, whose reduced configs train on the card too
+# the nine archs, whose reduced configs train on the card too
 ARCHS = ("gemma3-1b", "granite-3-2b", "chatglm3-6b", "granite-20b",
          "granite-moe-1b-a400m", "mixtral-8x7b", "llama-3.2-vision-11b",
-         "seamless-m4t-medium")
+         "seamless-m4t-medium", "falcon-mamba-7b")
+# falcon-mamba-7b's sequence: past the reference's CHUNK (128) and not a
+# multiple of it (repro/models/mamba.py pads and masks the tail)
+SEQ = {"falcon-mamba-7b": 200}
 
 
 def _np(x):
@@ -292,7 +299,8 @@ def _replay_in_reference(routes, monkeypatch):
 
 
 def _loss_and_grads(arch, monkeypatch, fp32=False):
-    cfg, jcfg, pj, pt, toks, labs, ctx = _setup(arch, fp32=fp32)
+    cfg, jcfg, pj, pt, toks, labs, ctx = _setup(arch, seq=SEQ.get(arch, S),
+                                                 fp32=fp32)
     if cfg.n_experts:
         _replay_in_reference(_port_routes(cfg, pt, toks, labs, monkeypatch),
                              monkeypatch)
@@ -315,7 +323,9 @@ def test_loss_and_grads_match_reference(arch, monkeypatch):
     runs that round differently pick other experts for a token (the
     reduced mixtral-8x7b and granite-moe-1b-a400m have such near ties on
     these inputs), and that token's grads then differ in every layer
-    below."""
+    below. falcon-mamba-7b's A_log grad sums over every step and channel,
+    where the two packages' scans round differently (within the
+    tolerance)."""
     (lj, gj), (lt, gt), pt = _loss_and_grads(arch, monkeypatch)
     np.testing.assert_allclose(float(lt), float(lj), rtol=TOL)
     want = dict(bridge.leaves(jax.tree.map(np.asarray, gj)))
@@ -383,19 +393,24 @@ def test_recompute_changes_no_bit(arch):
 
 # --------------------------------------------------------------- train step
 
-@pytest.mark.parametrize("microbatches", [1, 2])
-def test_train_step_matches_reference(microbatches):
-    """One ``make_train_step`` (AdamW, warmup 1) on the reduced gemma3-1b
-    in fp32 (every leaf cast on both sides, so that the update is held
+@pytest.mark.parametrize("arch, microbatches", [
+    pytest.param("gemma3-1b", 1, id="1"), pytest.param("gemma3-1b", 2, id="2"),
+    pytest.param("falcon-mamba-7b", 1, id="falcon-mamba-7b-1"),
+    pytest.param("falcon-mamba-7b", 2, id="falcon-mamba-7b-2")])
+def test_train_step_matches_reference(arch, microbatches):
+    """One ``make_train_step`` (AdamW, warmup 1) on a reduced config in
+    fp32 (every leaf cast on both sides, so that the update is held
     tightly): loss and grad norm within 1e-4 relative, every updated param
     within 1e-5 of the reference's but where a grad near 0 takes the other
     sign (Adam's first step moves a param by lr x sign(grad)): at most 1 in
     10 000 params, each within 2 lr; the returned state's step is 1, and
-    the inputs are left as they were."""
-    cfg, jcfg, pj, pt, _, _, _ = _setup("gemma3-1b", fp32=True)
+    the inputs are left as they were. gemma3-1b on 16 tokens a row,
+    falcon-mamba-7b on 200 (``SEQ``)."""
+    cfg, jcfg, pj, pt, _, _, _ = _setup(arch, fp32=True)
     rng = np.random.default_rng(5)
-    toks = rng.integers(0, cfg.vocab, (4, 16)).astype(np.int32)
-    labs = rng.integers(0, cfg.vocab, (4, 16)).astype(np.int32)
+    seq = SEQ.get(arch, 16)
+    toks = rng.integers(0, cfg.vocab, (4, seq)).astype(np.int32)
+    labs = rng.integers(0, cfg.vocab, (4, seq)).astype(np.int32)
     ocfg = dict(lr=3e-3, warmup_steps=1, total_steps=4)
     jstep = jsteps.make_train_step(jcfg, joptim.OptConfig(**ocfg),
                                    microbatches=microbatches)
@@ -551,29 +566,136 @@ def test_flash_function_on_cpu(shape):
         _close(x, y, "flash grad")
 
 
-def test_scan_needs_its_backward_kernel_on_cuda(monkeypatch):
-    """A kernel scan whose operands need a grad raises, naming the
-    ROADMAP item, instead of running the plain scan; without a grad, or
-    on the plain path, it runs. (No CUDA here: the dispatch is made to
-    take the kernel route.)"""
+_SCAN = [  # (Bt, S, D, N, x dtype)
+    (2, 37, 24, 4, "f32"), (1, 200, 16, 16, "f32"), (3, 9, 8, 1, "f32"),
+    (2, 150, 16, 4, "bf16"), (1, 33, 8, 16, "bf16"),
+]
+
+
+def _scan_case(case):
+    """numpy inputs of a scan and a dy: dt = softplus(normal), A =
+    -exp(0.3 normal), B, C, x, dy normal (x and dy rounded to bf16 for a
+    bf16 case, in both packages)."""
+    Bt, S, D, N, xd = case
+    rng = np.random.default_rng(Bt * S + D + N)
+    dt = np.log1p(np.exp(rng.standard_normal((Bt, S, D)))).astype(np.float32)
+    A = (-np.exp(0.3 * rng.standard_normal((D, N)))).astype(np.float32)
+    B, C = (rng.standard_normal((Bt, S, N)).astype(np.float32)
+            for _ in range(2))
+    x, dy = (rng.standard_normal((Bt, S, D)).astype(np.float32)
+             for _ in range(2))
+    return (dt, A, B, C), x, dy, (jnp.bfloat16, torch.bfloat16) \
+        if xd == "bf16" else (jnp.float32, torch.float32)
+
+
+@pytest.mark.parametrize("case", _SCAN, ids=[str(c) for c in _SCAN])
+def test_scan_function_on_cpu_matches_jax_vjp(case):
+    """``ops``' scan Function on CPU tensors (the plain forward, its
+    backward through ``mamba_scan_bwd_ref``) against ``jax.vjp`` of the
+    reference's ``mamba_scan_ref``: y and every grad, in the operands'
+    dtypes; ragged S, N of 1, 4 and 16, Bt > 1, x in fp32 and bf16. The
+    fp32 grads within 1e-4 (one fp32 recurrence in another order); y and
+    dx in bf16 within the bf16 tolerance."""
+    f32s, x, dy, (jd, td) = _scan_case(case)
+    y_j, vjp = jax.vjp(jref.mamba_scan_ref, *map(jnp.asarray, f32s),
+                       jnp.asarray(x, jd))
+    want = vjp(jnp.asarray(dy, jd))
+    ins = [torch.from_numpy(a).requires_grad_() for a in f32s] \
+        + [torch.from_numpy(x).to(td).requires_grad_()]
+    y, h_last = ops._MambaScan.apply(*ins)
+    got = torch.autograd.grad(y, ins, torch.from_numpy(dy).to(td))
+    tol = TOL if td == torch.bfloat16 else 1e-4
+    _close(y, y_j, "y", tol)
+    assert h_last.shape == (case[0], case[2], case[3])
+    for name, g, w, a in zip(("d_dt", "dA", "dB", "dC", "dx"), got, want,
+                             ins):
+        assert g.dtype == a.dtype, name
+        _close(g, w, name, tol if g.dtype == torch.bfloat16 else 1e-4)
+
+
+def test_scan_function_takes_the_grad_of_h_last():
+    """A gradient on h_last reaches the Function's backward pass as
+    dh_last: its grads equal torch autograd of the plain scan with both
+    outputs used."""
+    f32s, x, dy, _ = _scan_case((2, 40, 12, 4, "f32"))
+    dh = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (2, 12, 4)).astype(np.float32))
+    grads = []
+    for fn in (ops._MambaScan.apply, ref.mamba_scan_ref):
+        ins = [torch.from_numpy(a).requires_grad_() for a in (*f32s, x)]
+        y, h_last = fn(*ins)
+        grads.append(torch.autograd.grad((y, h_last), ins,
+                                         (torch.from_numpy(dy), dh)))
+    for g, w in zip(*grads):
+        _close(g, w, "grad", 1e-5)
+
+
+def test_scan_takes_its_function_on_the_kernel_route(monkeypatch):
+    """A kernel-route scan whose operands need a grad runs as
+    ``ops._MambaScan``: the forward kernel once, the backward kernel once
+    in the backward pass, grads as torch autograd of the plain scan gives
+    them; without a grad, the forward kernel alone; on the plain path,
+    plain autograd and no kernel. (No CUDA here: the dispatch is made to
+    take the kernel route and both kernels are patched to their plain
+    versions.)"""
     from repro_torch.kernels import mamba_scan as kscan
     calls = []
     monkeypatch.setattr(ops, "uses_kernel", lambda x, impl: impl != "torch")
-    monkeypatch.setattr(kscan, "mamba_scan",
-                        lambda *a: calls.append(1) or ref.mamba_scan_ref(*a))
-    g = torch.Generator().manual_seed(0)
-    dt = torch.rand(1, 5, 4, generator=g)
-    A = -torch.rand(4, 3, generator=g)
-    Bm, C = torch.randn(1, 5, 3, generator=g), torch.randn(1, 5, 3, generator=g)
-    x = torch.randn(1, 5, 4, generator=g, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
-        ops.mamba_scan(dt, A, Bm, C, x)
-    assert not calls
+    monkeypatch.setattr(kscan, "mamba_scan", lambda *a, **kw: calls.append(
+        "fwd") or ref.mamba_scan_ref(*a))
+    monkeypatch.setattr(kscan, "mamba_scan_bwd", lambda *a: calls.append(
+        "bwd") or ref.mamba_scan_bwd_ref(*a[:7]))
+    f32s, x, dy, _ = _scan_case((2, 21, 8, 4, "f32"))
+    ins = [torch.from_numpy(a).requires_grad_() for a in (*f32s, x)]
+    y, h_last = ops.mamba_scan(*ins)
+    assert type(y.grad_fn).__name__ == "_MambaScanBackward"
+    dh = torch.ones_like(h_last)
+    got = torch.autograd.grad((y, h_last), ins, (torch.from_numpy(dy), dh))
+    assert calls == ["fwd", "bwd"]
+    ins2 = [t.detach().clone().requires_grad_() for t in ins]
+    y2, h2 = ref.mamba_scan_ref(*ins2)
+    want = torch.autograd.grad((y2, h2), ins2, (torch.from_numpy(dy), dh))
+    for g, w in zip(got, want):
+        _close(g, w, "grad", 1e-5)
+    calls.clear()
     with torch.no_grad():
-        ops.mamba_scan(dt, A, Bm, C, x)
-    assert calls == [1]
-    y, _ = ops.mamba_scan(dt, A, Bm, C, x, impl="torch")
-    assert y.requires_grad
+        ops.mamba_scan(*ins)
+    assert calls == ["fwd"]
+    calls.clear()
+    y, _ = ops.mamba_scan(*ins, impl="torch")
+    assert y.requires_grad and y.grad_fn is not None and not calls
+
+
+def test_scan_function_in_the_loss_of_falcon_mamba(monkeypatch):
+    """The reduced falcon-mamba-7b's loss and grads with every scan on the
+    kernel route (no CUDA here: the dispatch takes the kernel route and the
+    scan's two kernel wrappers, which take their plain versions on CPU
+    tensors, are counted): a layer runs the scan's forward twice (the
+    forward pass and the per-period recompute) and its backward once, as
+    ``chip_smoke.train_counts`` expects on the card; the loss is the plain
+    path's bit for bit and every grad within the file's rule."""
+    from repro_torch.kernels import mamba_scan as kscan
+    cfg, _, _, pt, toks, labs, _ = _setup("falcon-mamba-7b", seq=40)
+    args = (torch.from_numpy(toks), torch.from_numpy(labs), None)
+    want_loss, want = tsteps.value_and_grad(pt, cfg, *args, impl="torch")
+    calls = {"fwd": 0, "bwd": 0}
+    fwd, bwd = kscan.mamba_scan, kscan.mamba_scan_bwd
+
+    def counted(name, fn):
+        def run(*a, **kw):
+            calls[name] += 1
+            return fn(*a, **kw)
+        return run
+    monkeypatch.setattr(ops, "uses_kernel", lambda x, impl: impl != "torch")
+    monkeypatch.setattr(kscan, "mamba_scan", counted("fwd", fwd))
+    monkeypatch.setattr(kscan, "mamba_scan_bwd", counted("bwd", bwd))
+    loss, got = tsteps.value_and_grad(pt, cfg, *args, impl="auto")
+    assert calls == {"fwd": 2 * cfg.n_layers, "bwd": cfg.n_layers}
+    assert torch.equal(loss, want_loss)
+    want = dict(bridge.leaves(want))
+    for path, g in bridge.leaves(got):
+        assert g.dtype == want[path].dtype, path
+        _close(g, want[path], path)
 
 
 # ----------------------------------------------------------------- launcher
@@ -597,6 +719,17 @@ def test_train_launcher_trains_a_vlm_with_its_context(tmp_path, capsys):
                  "--ckpt", str(tmp_path)])
     out = capsys.readouterr().out
     assert "arch=llama-3.2-vision-11b" in out and "done: 2 steps" in out
+
+
+def test_train_launcher_trains_falcon_mamba_on_cpu(tmp_path, capsys):
+    """The launcher takes falcon-mamba-7b (its Mamba layers through the
+    scan's Function on the card, the plain scan here)."""
+    ttrain.main(["--arch", "falcon-mamba-7b", "--reduced", "--steps", "2",
+                 "--batch", "2", "--seq", "20", "--device", "cpu",
+                 "--ckpt", str(tmp_path)])
+    out = capsys.readouterr().out
+    assert "arch=falcon-mamba-7b" in out and "done: 2 steps" in out
+    assert latest_step(str(tmp_path)) == 2
 
 
 def test_train_launcher_defaults_to_cuda(monkeypatch):
