@@ -146,11 +146,14 @@
    (a') The serving scan's outputs at SERVE_SCAN_CASES against
    SERVE_SCAN_DIGEST, the bits the kernel gave before its training
    instance; then the scan's backward kernel (``mamba_scan_bwd``) at
-   SCAN_BWD_CASES: falcon-mamba-7b's training microbatch (1, 1024, 8192,
-   16) with x in bf16, the reduced config's shape, ragged S, D = 8190,
-   every padded N (1 to 64), Bt > 1, dh_last given: the forward's
-   training instance (chunk states) against its plain version, then d
-   dt, dA, dB, dC and dx against ``mamba_scan_bwd_ref`` on the same
+   SCAN_BWD_CASES, after ptxas's registers and spills for each of its
+   instances (none may spill at N = 16): falcon-mamba-7b's training
+   microbatch (1, 1024, 8192, 16) with x in bf16, the reduced config's
+   shape, ragged S, several segments of a length that does not divide S,
+   D = 8190, every padded N (1 to 64), Bt > 1, dh_last given (each case
+   prints its plan: segments, blocks an SM; and its us a step): the
+   forward's training instance (chunk states) against its plain version,
+   then d dt, dA, dB, dC and dx against ``mamba_scan_bwd_ref`` on the same
    inputs within SCAN_BWD_TOL (an atol a channel of d dt and dx, a step
    of dB and dC), the tolerances' power to reject a zeroed and a 10 %-off
    output, whole or in the first half of the steps (where the reverse
@@ -217,6 +220,7 @@ import gc
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -417,12 +421,16 @@ SERVE_SCAN_DIGEST = (
     "5de8a1a7c43ecc7309d21e07a6685a1bc1534d0d1ee0cf2699b9663549d9ebb0")
 # (Bt, S, D, N, x dtype, tag, options): falcon-mamba-7b's training
 # microbatch (1 x 1024 tokens, d_inner 8192, N 16) and its reduced
-# config's, ragged S with dh_last, D = 8190 (rows not 16-byte aligned),
-# every padded instance (N = 1, 4, 8, 16, 32, 64), Bt > 1
+# config's, ragged S with dh_last, several segments whose length does
+# not divide S with the model's dt (a carry reaches across about 100
+# steps) and dh_last, D = 8190 (rows not 16-byte aligned), every padded
+# instance (N = 1, 4, 8, 16, 32, 64), Bt > 1
 SCAN_BWD_CASES = (
     (1, 1024, 8192, 16, torch.bfloat16, "microbatch", dict(model_like=True)),
     (2, 64, 128, 4, torch.bfloat16, "reduced", dict(model_like=True)),
     (1, 1000, 512, 16, torch.float32, "ragged S", dict(dh=True)),
+    (2, 1000, 1024, 16, torch.bfloat16, "segmented",
+     dict(model_like=True, dh=True)),
     (2, 250, 8190, 16, torch.bfloat16, "ragged D", dict(model_like=True)),
     (2, 300, 640, 1, torch.float32, "N=1", dict(dh=True)),
     (3, 37, 640, 4, torch.float32, "N=4 Bt=3", {}),
@@ -1231,8 +1239,8 @@ def scan_bwd_case(Bt, S, D, N, x_dtype, tag, model_like=False, dh=False,
     tolerance's power to reject a wrong output (whole, or in the first
     half of the steps); each grad's relative L2 distance to an fp64 truth
     within PATH_RATIO of the plain version's; the kernel and the plain
-    version timed. With ``split``, the two launches' device times under
-    the profiler."""
+    version timed. With ``split``: the launches' device times under the
+    profiler (pre-pass, scan, sums), held to add up to the call's time."""
     from repro_torch.kernels import mamba_scan as kscan
     from repro_torch.kernels import ref
 
@@ -1302,11 +1310,9 @@ def scan_bwd_case(Bt, S, D, N, x_dtype, tag, model_like=False, dh=False,
     fwd_ms = time_ms(lambda: kscan.mamba_scan(*fwd, chunk_states=True), [()])
     serve_ms = time_ms(lambda: kscan.mamba_scan(*fwd), [()])
     fwd_plain = time_ms(lambda: ref.mamba_scan_ref(*fwd), [()], reps=3)
-    if split:   # the call's device time by launch: the scan, then the sums
-        _, _, top = profile_device(lambda: kscan.mamba_scan_bwd(*args))
-        split = {part: sum(t for nm, t, _ in top if key in nm)
-                 for part, key in (("scan", "mamba_scan_bwd<"),
-                                   ("sum", "mamba_scan_bwd_sum"))}
+    if split:   # the call's device time by launch
+        split = scan_bwd_launch_ms(lambda: kscan.mamba_scan_bwd(*args), ms,
+                                   p.pre_grid > 0, name)
     es = x.element_size()
     n_ss = Bt * S * D * N    # state-steps
     nbytes = (Bt * S * D * (4 + 2 * es) + Bt * S * D * (4 + es)   # dt, x, dy; d dt, dx
@@ -1324,10 +1330,13 @@ def scan_bwd_case(Bt, S, D, N, x_dtype, tag, model_like=False, dh=False,
                                exps=n_ss)
     row = dict(tag=tag, Bt=Bt, S=S, D=D, N=N, x_dtype=_dt(x_dtype),
                dh_last=dh, lanes=p.lanes, channels=p.channels, chunk=p.chunk,
-               stages=p.stages, smem_bytes=p.smem_bytes, grid=p.grid,
+               segments=p.segments, seg_chunks=p.seg_chunks,
+               resident=p.resident,
+               smem_bytes=p.smem_bytes, grid=p.grid, pre_grid=p.pre_grid,
                chunk_state_bytes=hc.numel() * 4,
-               workspace_bytes=(p.ws_bc_floats + p.ws_a_floats) * 4,
+               workspace_bytes=p.ws_floats * 4,
                max_abs_err=max(errs.values()), errs=errs, rel_l2_fp64=l2,
+               us_per_step=ms * 1e3 / S,
                ms=ms, plain_ms=plain, library_ms=None, bound_ms=bnd,
                bound_by=by, bytes_bound_ms=nbytes / HBM_BYTES_S * 1e3,
                exp_bound_ms=n_ss / EXP_RATE * 1e3,
@@ -1338,13 +1347,15 @@ def scan_bwd_case(Bt, S, D, N, x_dtype, tag, model_like=False, dh=False,
                             bound_ms=fwd_bnd, bound_by=fwd_by))
     print(f"mamba_scan_bwd {tag:>10} ({Bt},{S},{D},{N}) x {row['x_dtype']} "
           f"dh_last={int(dh)} plan G={p.lanes} channels/block={p.channels} "
-          f"chunk={p.chunk} stages={p.stages} smem={p.smem_bytes} "
-          f"grid={p.grid}; err "
+          f"chunk={p.chunk} segments={p.segments}x{p.seg_chunks} "
+          f"blocks/SM={p.resident} smem={p.smem_bytes} grid={p.grid}"
+          f"+{p.pre_grid}; err "
           + " ".join(f"{k} {v:.2e}" for k, v in errs.items())
           + "; rel L2 to fp64 kernel/plain "
           + " ".join(f"{k} {v['kernel']:.3e}/{v['plain']:.3e}"
                      for k, v in l2.items())
-          + f"; kernel {ms:.4f} ms  plain {plain:.4f}  bound {bnd:.4f} ({by}; "
+          + f"; kernel {ms:.4f} ms ({row['us_per_step']:.4f} us a step)  "
+          f"plain {plain:.4f}  bound {bnd:.4f} ({by}; "
           f"bytes {row['bytes_bound_ms']:.4f}, exp {row['exp_bound_ms']:.4f}, "
           f"fp32 {row['fp32_bound_ms']:.4f}); forward with chunk states "
           f"{fwd_ms:.4f} ms, serving's {serve_ms:.4f}, plain {fwd_plain:.4f}, "
@@ -1354,6 +1365,94 @@ def scan_bwd_case(Bt, S, D, N, x_dtype, tag, model_like=False, dh=False,
     del args, fwd, dy, dh_last, hc
     free_memory()
     return row
+
+
+def scan_bwd_launch_ms(fn, ms: float, pre_pass: bool, name: str,
+                       calls: int = 4) -> dict:
+    """The mean device ms of each of the backward call's launches (the
+    pre-pass, the scan, the sums) over ``calls`` runs of ``fn`` under
+    torch.profiler, from each kernel's own record, after a warm-up run
+    that the profiler discards (a profile's first kernel can go
+    unrecorded). Fails unless every launch the call makes (the pre-pass
+    where ``pre_pass``) was recorded once a run with some device time,
+    and unless the parts add up to ``ms``, the call's time by CUDA-graph
+    replay, within a tenth of it and 5 us a launch (the gaps between
+    launches)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        prof.step()
+    total, count = dict(carry=0.0, scan=0.0, sum=0.0), dict(carry=0, scan=0,
+                                                             sum=0)
+    seen = set()
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        seen.add(e.name[:90])
+        if "mamba_scan_bwd" not in e.name:
+            continue
+        part = ("carry" if "bwd_carry" in e.name else
+                "sum" if "bwd_sum" in e.name else "scan")
+        total[part] += e.time_range.elapsed_us() / 1e3
+        count[part] += 1
+    want = dict(carry=calls if pre_pass else 0, scan=calls, sum=calls)
+    if count != want:
+        raise AssertionError(f"{name}: the profiler recorded {count} launches "
+                             f"in {calls} calls, want {want}; device events "
+                             f"{sorted(seen)}")
+    out = {k: total[k] / calls for k in total}
+    if any(out[k] <= 0 for k in out if want[k]):
+        raise AssertionError(f"{name}: a launched kernel reads no device time "
+                             f"({out})")
+    parts = sum(out.values())
+    if not abs(parts - ms) <= 0.1 * ms + 0.005 * sum(want.values()) / calls:
+        raise AssertionError(f"{name}: the profiled launches add up to "
+                             f"{parts:.4f} ms, the call takes {ms:.4f} ms "
+                             f"({out})")
+    return out
+
+
+def scan_bwd_registers() -> dict:
+    """Registers and spill bytes (stores, loads) of each instance of the
+    backward kernels, from ptxas's report in the build's log."""
+    from repro_torch.kernels import build
+
+    log = build.build_dir() / "mamba_scan_bwd.log"
+    regs, fn = {}, None
+    for line in log.read_text().splitlines():
+        m = re.search(r"(?:entry function '|Function properties for )(\w+)",
+                      line)
+        if m:   # the kernel's name is the last mamba_scan_bwd* in it
+            mangled = m.group(1)
+            name, np_ = re.findall(r"(mamba_scan_bwd(?:_carry|_sum)?)"
+                                   r"(?:ILi(\d+)E)?", mangled)[-1]
+            blocks = re.search(r"(?:bfloat16|f)Li(\d)EE", mangled)
+            fn = (f"{name}<{np_}, {'bf16' if 'bfloat16' in mangled else 'f32'}"
+                  f"{f', {blocks.group(1)}' if blocks else ''}>" if np_
+                  else name)
+            regs.setdefault(fn, {})
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and fn:
+            regs[fn]["spills"] = [int(m.group(1)), int(m.group(2))]
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            regs[fn]["registers"] = int(m.group(1))
+    for k, v in sorted(regs.items()):
+        print(f"ptxas {k}: {v.get('registers')} registers, spills "
+              f"{v.get('spills')}", flush=True)
+    return regs
 
 
 def serve_scan_digest(kscan) -> str:
@@ -1398,10 +1497,19 @@ def serve_scan_bits() -> dict:
 
 def scan_bwd_phase(split: bool = False) -> dict:
     """Phase 8(a'): the serving scan's bits, then the scan's backward
-    kernel at SCAN_BWD_CASES."""
-    return dict(serve_bits=serve_scan_bits(),
-                cases=[scan_bwd_case(*c[:6], **c[6], split=split)
-                       for c in SCAN_BWD_CASES])
+    kernel at SCAN_BWD_CASES; fails if its N = 16 instances spill."""
+    from repro_torch.kernels import mamba_scan as kscan
+
+    out = dict(serve_bits=serve_scan_bits(), ptxas=scan_bwd_registers(),
+               cases=[scan_bwd_case(*c[:6], **c[6], split=split)
+                      for c in SCAN_BWD_CASES])
+    for t, es in (("bf16", 2), ("f32", 4)):   # N = 16: none may spill
+        v = out["ptxas"].get(f"mamba_scan_bwd<16, {t}, "
+                             f"{kscan.plan_bwd(1, 64, 64, 16, es).blocks}>")
+        if v is None or v.get("spills") != [0, 0]:
+            raise AssertionError(f"mamba_scan_bwd<16, {t}>: ptxas reports "
+                                 f"{v}; the plan wants no spills")
+    return out
 
 
 # ------------------------------------------------------------------- serve

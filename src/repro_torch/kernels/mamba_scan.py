@@ -13,7 +13,7 @@ recomputes each chunk from. A tensor on the CPU takes the plain version
 launches the kernel or raises. ``plan`` and ``plan_bwd`` decide every
 launch parameter before the launch, and the C side refuses a plan that
 does not match the instance it picks. ``launches`` and ``bwd_launches``
-count kernel launches (a backward call's two kernels count once).
+count kernel launches (a backward call's three kernels count once).
 """
 
 from __future__ import annotations
@@ -41,14 +41,25 @@ SMEM_SM = 228 * 1024
 SMEM_BLOCK = 227 * 1024
 SMEM_RESERVED = 1024
 MAX_GRID = 2 ** 31 - 1   # blocks along the grid's x dimension
-# the backward kernel: states saved every CHUNK steps (csrc/mamba_scan.cuh),
-# one block an SM, the ring's stages best first, and the second kernel's
-# blocks (SUM_THREADS threads each, at most SUM_BLOCKS)
+# the backward kernels (csrc/mamba_scan_bwd.cu): states saved every CHUNK
+# steps (csrc/mamba_scan.cuh); blocks of BWD_THREADS with the forward's
+# lanes, their registers bounded for 4 blocks an SM where 4 fit in shared
+# memory, else for 2 (BWD_BLOCKS); sums taken every SUM_STEPS steps;
+# STASH steps of decays a thread in shared memory; as many segments of
+# whole chunks as fill every SM's resident blocks about once; the
+# pre-pass's pieces at most PIECE chunks; the summing kernel's blocks of
+# SUM_OUT outputs of dB and dC, each summed in SUM_SLICES strided slices,
+# and of SUM_OUT * SUM_SLICES outputs of dA
 CHUNK = 16
-WARPS = CONSUMERS // 32
-BWD_STAGES = (3, 2)
-SUM_THREADS = 256
-SUM_BLOCKS = 132 * 8
+BWD_THREADS = 128
+BWD_WARPS = BWD_THREADS // 32
+BWD_BLOCKS = (2, 4)
+SUM_STEPS = CHUNK // 2
+STASH = 8
+SMS = 132
+PIECE = 4
+SUM_OUT = 32
+SUM_SLICES = 8
 _fn = None
 _bwd_fn = None
 
@@ -182,59 +193,103 @@ def mamba_scan(dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
 @dataclass(frozen=True)
 class BwdPlan:
     """One call of the backward kernels: the forward's split of NP states
-    over ``lanes`` lanes of ``states_per_lane`` and ``channels`` a block,
-    ``chunks`` chunks of ``chunk`` steps walked in reverse through a ring
-    of ``stages`` tiles, ``smem_bytes`` of shared memory (the ring and two
-    chunks of the warps' dB and dC sums), ``grid`` blocks of ``threads``,
-    the partial sums' workspace (``ws_bc_floats`` of dB and dC,
-    ``ws_a_floats`` of dA) and the summing kernel's ``sum_grid`` blocks."""
+    over ``lanes`` lanes of ``states_per_lane`` and ``channels`` a block
+    of ``threads``, registers bounded for ``blocks`` blocks an SM (4
+    where 4 fit in shared memory, else 2); S cut into ``segments`` of
+    ``seg_chunks`` chunks of ``chunk`` steps (``chunks`` in all), a block
+    a (batch row, channel block, segment) in ``grid``, its sums taken
+    every ``sum_steps`` steps; the pre-pass's ``pieces`` of
+    ``piece_chunks`` chunks, a block each in ``pre_grid`` but those of the
+    first segment; ``smem_bytes`` of
+    shared memory a block (two stages of a chunk's inputs, a buffer of
+    sums for each half of a chunk, the stashed decays) and ``resident``
+    blocks an SM; the workspace (``ws_bc_floats`` of dB and dC partials,
+    one (Bt, S, 2, NP) slice a channel block; ``ws_a_floats`` of dA
+    partials, one (D, NP) slice a (batch row, segment); the pre-pass's
+    carries and sums of dt a piece), ``ws_floats`` in all; the summing
+    kernel's ``sum_grid``."""
     np: int
     lanes: int
     states_per_lane: int
     channels: int
+    threads: int
+    blocks: int
     chunk: int
     chunks: int
-    stages: int
-    threads: int
+    sum_steps: int
+    seg_chunks: int
+    segments: int
+    piece_chunks: int
+    pieces: int
     smem_bytes: int
-    grid: int
+    resident: int
     blocks_d: int
+    grid: int
+    pre_grid: int
     ws_bc_floats: int
     ws_a_floats: int
+    ws_floats: int
     sum_grid: int
 
 
+def bwd_smem_bytes(np_: int, x_bytes: int) -> int:
+    """The backward kernel's shared memory: two stages of a chunk's dt, x,
+    dy, B, C and saved states; for each half of a chunk, the warps' dB and
+    dC sums and the lanes' d dt and du partials; STASH steps of each
+    thread's decays."""
+    channels = BWD_THREADS * STATES_PER_LANE // np_
+    stage = (CHUNK * (channels * (4 + 2 * x_bytes) + 2 * np_ * 4)
+             + channels * np_ * 4)
+    part = SUM_STEPS * 2 * BWD_WARPS * np_ + SUM_STEPS * 2 * BWD_THREADS
+    return 2 * stage + 2 * part * 4 + STASH * BWD_THREADS * STATES_PER_LANE * 4
+
+
 def plan_bwd(Bt: int, S: int, D: int, N: int, x_bytes: int) -> BwdPlan:
-    """The backward kernels' launch for dt, x, dy (Bt, S, D), N states and
-    x of ``x_bytes`` a value: the forward's lanes and channels a block;
-    the deepest ring of CHUNK-step tiles (dt, x, dy, B, C) that fits one
-    block's shared memory beside the warps' sums; one workspace row of dB
-    and dC a channel block and of dA a batch row."""
-    fwd = plan(Bt, S, D, N, x_bytes)
-    np_, channels = fwd.np, fwd.channels
-    step = channels * (4 + 2 * x_bytes) + 2 * np_ * 4   # bytes a step
-    red = 2 * CHUNK * WARPS * 2 * np_ * 4
-    for stages in BWD_STAGES:
-        smem = stages * (CHUNK * step + 16) + red
-        if smem <= SMEM_BLOCK:
-            break
+    """The backward kernels' launches for dt, x, dy (Bt, S, D), N states and
+    x of ``x_bytes`` a value: the forward's lanes, BWD_THREADS threads a
+    block; as many segments of whole chunks as fill every SM's resident
+    blocks about once (the nearest whole number), cut to the chunks, then
+    evened out; the pre-pass's pieces the longest of at most PIECE chunks
+    that divide a segment's."""
+    np_ = plan(Bt, S, D, N, x_bytes).np
+    lanes = np_ // STATES_PER_LANE
+    channels = BWD_THREADS // lanes
+    smem = bwd_smem_bytes(np_, x_bytes)
+    fit = SMEM_SM // (smem + SMEM_RESERVED)
+    blocks = BWD_BLOCKS[-1] if fit >= BWD_BLOCKS[-1] else BWD_BLOCKS[0]
+    resident = min(blocks, fit)
     blocks_d = -(-D // channels)
-    n_out = Bt * S * 2 * N + D * N
-    return BwdPlan(np=np_, lanes=fwd.lanes, states_per_lane=STATES_PER_LANE,
-                   channels=channels, chunk=CHUNK, chunks=-(-S // CHUNK),
-                   stages=stages, threads=THREADS, smem_bytes=smem,
-                   grid=Bt * blocks_d, blocks_d=blocks_d,
-                   ws_bc_floats=blocks_d * Bt * S * 2 * N,
-                   ws_a_floats=Bt * D * N,
-                   sum_grid=max(1, min(SUM_BLOCKS, -(-n_out // SUM_THREADS))))
+    chunks = -(-S // CHUNK)
+    walk = max(chunks, 1)   # an empty sequence plans one chunk
+    rows = Bt * blocks_d
+    want = (SMS * resident + rows // 2) // rows
+    seg_chunks = -(-walk // max(1, min(want, walk)))
+    segments = -(-walk // seg_chunks)
+    piece_chunks = max(c for c in range(1, PIECE + 1) if seg_chunks % c == 0)
+    pieces = -(-walk // piece_chunks)
+    tasks = (-(-Bt * S * 2 * N // SUM_OUT)
+             + -(-D * N // (SUM_OUT * SUM_SLICES)))
+    ws_bc = blocks_d * Bt * S * 2 * np_
+    ws_a = Bt * segments * D * np_
+    return BwdPlan(np=np_, lanes=lanes, states_per_lane=STATES_PER_LANE,
+                   channels=channels, threads=BWD_THREADS, blocks=blocks,
+                   chunk=CHUNK, chunks=chunks, sum_steps=SUM_STEPS,
+                   seg_chunks=seg_chunks, segments=segments,
+                   piece_chunks=piece_chunks, pieces=pieces,
+                   smem_bytes=smem, resident=resident,
+                   blocks_d=blocks_d, grid=rows * segments,
+                   pre_grid=rows * (pieces - seg_chunks // piece_chunks),
+                   ws_bc_floats=ws_bc, ws_a_floats=ws_a,
+                   ws_floats=ws_bc + ws_a + Bt * pieces * D * (np_ + 1),
+                   sum_grid=tasks)
 
 
 def _bwd_kernel():
     global _bwd_fn
     if _bwd_fn is None:
         fn = build.load("mamba_scan_bwd").repro_mamba_scan_bwd
-        fn.argtypes = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 11
-                       + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 16
+                       + [ctypes.c_longlong] * 3 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _bwd_fn = fn
     return _bwd_fn
@@ -263,9 +318,9 @@ def check_bwd_operands(dt, A, B, C, x, dy, dh_last, h_chunks) -> BwdPlan:
         raise ValueError(f"mamba_scan_bwd: the kernel reads the forward's "
                          f"chunk states, a contiguous fp32 {want}")
     p = plan_bwd(Bt, S, D, N, x.element_size())
-    if p.grid > MAX_GRID:
-        raise ValueError(f"mamba_scan_bwd: {p.grid} blocks exceed the grid's "
-                         f"{MAX_GRID}")
+    if max(p.grid, p.sum_grid) > MAX_GRID:
+        raise ValueError(f"mamba_scan_bwd: {max(p.grid, p.sum_grid)} blocks "
+                         f"exceed the grid's {MAX_GRID}")
     return p
 
 
@@ -294,16 +349,17 @@ def mamba_scan_bwd(dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
     if Bt == 0 or S == 0 or D == 0:
         return d_dt, torch.zeros((D, N), **f32), dB, dC, dx
     dA = torch.empty((D, N), **f32)
-    ws_bc = torch.empty(p.ws_bc_floats, **f32)
-    ws_a = torch.empty(p.ws_a_floats, **f32)
+    ws = torch.empty(p.ws_floats, **f32)
     err = _bwd_kernel()(
         dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(), x.data_ptr(),
         dy.data_ptr(), 0 if dh_last is None else dh_last.data_ptr(),
         h_chunks.data_ptr(), d_dt.data_ptr(), dA.data_ptr(), dB.data_ptr(),
-        dC.data_ptr(), dx.data_ptr(), ws_bc.data_ptr(), ws_a.data_ptr(),
+        dC.data_ptr(), dx.data_ptr(), ws.data_ptr(),
         Bt, S, D, N, int(x.dtype == torch.bfloat16), p.np,
-        p.states_per_lane, p.channels, p.chunk, p.stages, p.smem_bytes,
-        p.grid, p.sum_grid, torch.cuda.current_stream(x.device).cuda_stream)
+        p.states_per_lane, p.channels, p.chunk, p.sum_steps, p.threads,
+        p.blocks, p.seg_chunks, p.segments, p.piece_chunks, p.smem_bytes,
+        p.grid, p.pre_grid, p.sum_grid,
+        torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError(f"mamba_scan_bwd kernel launch failed: cudaError "
                            f"{err}")

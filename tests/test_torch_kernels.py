@@ -893,52 +893,210 @@ def test_mamba_scan_bwd_ref_takes_bf16_x():
                                    atol=1e-2 * float(w.abs().max()))
 
 
+def _segmented_scan_bwd(dt, A, B, C, x, dy, dh_last, seg_len, piece_len=None,
+                        carries=True):
+    """The backward kernel's split of time written out in plain PyTorch,
+    fp32: S cut into segments of ``seg_len`` steps and into pieces of
+    ``piece_len`` (dividing ``seg_len``; by default a segment each); the
+    pre-pass's carry r0 that each piece after the first segment hands back
+    from no carry in, sum_t exp(A cs_t) dy_t C_t with cs_t the sum of dt
+    over the piece up to t, and its sum of dt; each segment's carry from
+    the pieces after it folded in, the last first, R = r0 + exp(A sum dt)
+    R, from dh_last (or 0); then each segment run back from its carry
+    alone, its dA summed with the others'. ``carries=False`` drops every
+    carry but dh_last."""
+    Bt, S, D = x.shape
+    N = A.shape[1]
+    piece_len = piece_len or seg_len
+    assert seg_len % piece_len == 0
+    dyf, xf = dy.float(), x.float()
+    hs = [torch.zeros((Bt, D, N))]   # hs[t + 1] = h_t
+    for t in range(S):
+        hs.append(torch.exp(dt[:, t, :, None] * A) * hs[-1]
+                  + (dt[:, t] * xf[:, t])[..., None] * B[:, t, None, :])
+    r0, sdt = {}, {}
+    for p0 in range(seg_len, S, piece_len):
+        cs = torch.cumsum(dt[:, p0:p0 + piece_len], 1)       # (Bt, L, D)
+        dyc = dyf[:, p0:p0 + piece_len, :, None] * C[:, p0:p0 + piece_len,
+                                                       None, :]
+        r0[p0] = (torch.exp(cs[..., None] * A) * dyc).sum(1)
+        sdt[p0] = cs[:, -1]
+    d_dt, dx = torch.empty((Bt, S, D)), torch.empty((Bt, S, D))
+    dB, dC = torch.empty((Bt, S, N)), torch.empty((Bt, S, N))
+    dA = torch.zeros((D, N))
+    for t0 in range(0, S, seg_len):
+        r = torch.zeros((Bt, D, N)) if dh_last is None else dh_last.clone()
+        if carries:
+            for p0 in sorted((p for p in r0 if p >= t0 + seg_len),
+                             reverse=True):
+                r = r0[p0] + torch.exp(sdt[p0][..., None] * A) * r
+        elif t0 + seg_len < S:
+            r = torch.zeros((Bt, D, N))
+        for t in reversed(range(t0, min(t0 + seg_len, S))):
+            a = torch.exp(dt[:, t, :, None] * A)
+            g = dyf[:, t, :, None] * C[:, t, None, :] + r
+            r = a * g
+            gah = r * hs[t]
+            dC[:, t] = torch.einsum("bd,bdn->bn", dyf[:, t], hs[t + 1])
+            dB[:, t] = torch.einsum("bdn,bd->bn", g, dt[:, t] * xf[:, t])
+            du = torch.einsum("bdn,bn->bd", g, B[:, t])
+            d_dt[:, t] = torch.einsum("bdn,dn->bd", gah, A) + xf[:, t] * du
+            dx[:, t] = dt[:, t] * du
+            dA += (gah * dt[:, t, :, None]).sum(0)
+    return d_dt, dA, dB, dC, dx
+
+
+@pytest.mark.parametrize("case", [
+    ((2, 200, 8, 4), 64, 64),    # 64-step segments that do not divide S
+    ((1, 192, 8, 16), 64, 16),   # ... and that do, in 16-step pieces
+    ((2, 100, 6, 3), 100, 100),  # one segment
+    ((2, 100, 6, 3), 256, 64),   # one segment longer than S
+    ((1, 40, 8, 4), 1, 1),       # a segment a step: more than chunks allow
+    ((3, 37, 5, 8), 8, 4),       # half-chunk segments, S ragged
+    ((1, 160, 4, 16), 32, 8),    # pieces of a quarter segment
+], ids=lambda c: f"{'x'.join(map(str, c[0]))}-seg{c[1]}-piece{c[2]}")
+@pytest.mark.parametrize("with_dh", [False, True], ids=["no-dh", "dh"])
+def test_mamba_scan_bwd_segmented_matches_the_plain_version(case, with_dh):
+    """The kernel's split of time, written out in plain PyTorch (the
+    pre-pass's carries and sums of dt a piece, the pieces after a segment
+    folded in, each segment from its carry) against
+    ``ref.mamba_scan_bwd_ref``, fp32, rtol 1e-5: a piece's decays as
+    exp(A cs_t) and exp(A sum dt) in place of products of its steps'
+    decays. dt near falcon-mamba-7b's (softplus(0.5 z - 4.6) ~
+    0.01), so a carry reaches across about 100 steps; where there is more
+    than one segment, dropping the carries must fail the same check."""
+    (Bt, S, D, N), seg_len, piece_len = case
+    rng = np.random.default_rng(S + seg_len)
+
+    def normal(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    dt = torch.nn.functional.softplus(0.5 * normal(Bt, S, D) - 4.6)
+    A = -torch.exp(0.3 * normal(D, N))
+    B, C, x, dy = (normal(Bt, S, N), normal(Bt, S, N), normal(Bt, S, D),
+                   normal(Bt, S, D))
+    dh = normal(Bt, D, N) if with_dh else None
+    want = ref.mamba_scan_bwd_ref(dt, A, B, C, x, dy, dh)
+    got = _segmented_scan_bwd(dt, A, B, C, x, dy, dh, seg_len, piece_len)
+    for name, g, w in zip(("d_dt", "dA", "dB", "dC", "dx"), got, want):
+        assert g.shape == w.shape, name
+        np.testing.assert_allclose(_np(g), _np(w), rtol=1e-5,
+                                   atol=1e-5 * float(w.abs().max()),
+                                   err_msg=name)
+    if seg_len < S:
+        cut = _segmented_scan_bwd(dt, A, B, C, x, dy, dh, seg_len, piece_len,
+                                  carries=False)
+        assert not all(np.allclose(_np(g), _np(w), rtol=1e-5,
+                                   atol=1e-5 * float(w.abs().max()))
+                       for g, w in zip(cut, want))
+
+
 @pytest.mark.parametrize("x_bytes", [2, 4], ids=["bf16", "f32"])
 @pytest.mark.parametrize("case", _SCAN_PLAN_CASES,
                          ids=[f"{c[0]}-{c[1]}x{c[2]}x{c[3]}x{c[4]}"
                               for c in _SCAN_PLAN_CASES])
 def test_mamba_scan_bwd_plan(case, x_bytes):
-    """The backward kernel's plan: the forward's lanes and channels a
-    block and its grid; whole chunks of CHUNK steps covering S; the ring
-    (dt, x, dy, B, C of a chunk) and two chunks of the warps' dB and dC
-    sums within one block's shared memory; the workspace: one (Bt, S, 2,
-    N) slice of partial dB and dC a channel block and one (D, N) slice of
-    partial dA a batch row; the summing kernel's blocks cover its outputs
-    within SUM_BLOCKS; the chunk states (Bt, ceil(S / 16), D, NP)."""
+    """The backward kernels' plan: the forward's lanes, BWD_THREADS
+    threads a block and its channels; segments of whole CHUNK-step chunks
+    that cover S, none empty: as many as fill every SM's resident blocks
+    about once (at most a segment a chunk), then evened out, so no more
+    than that; sums every half chunk; registers bounded for 4 blocks an
+    SM where 4 fit in shared memory, else 2; the grid a block a (batch
+    row, channel block, segment); the pre-pass's pieces of at most PIECE
+    chunks that divide a segment, a block each but those of the first
+    segment; two stages of a chunk's inputs, each half-chunk's sums and
+    STASH steps of decays in shared memory, for at least 2 blocks an SM;
+    the workspace: a (Bt, S, 2, NP) slice of dB and dC partials a channel
+    block, a (D, NP) slice of dA a (batch row, segment), the carries and
+    sums of dt a piece; the summing kernel a block of SUM_OUT outputs;
+    the chunk states (Bt, ceil(S / 16), D, NP)."""
     _, Bt, S, D, N = case
     p = tscan.plan_bwd(Bt, S, D, N, x_bytes)
     f = tscan.plan(Bt, S, D, N, x_bytes)
-    assert (p.np, p.lanes, p.states_per_lane, p.channels, p.grid,
-            p.threads) == (f.np, f.lanes, f.states_per_lane, f.channels,
-                           f.grid, f.threads)
-    assert p.blocks_d == -(-D // p.channels) and p.grid == Bt * p.blocks_d
-    assert p.chunk == tscan.CHUNK == 16 and p.chunk % p.lanes == 0
+    assert (p.np, p.lanes, p.states_per_lane) == (f.np, f.lanes,
+                                                  f.states_per_lane)
+    assert p.threads == tscan.BWD_THREADS == 128
+    assert p.channels * p.lanes == p.threads
+    assert p.blocks_d == -(-D // p.channels)
+    assert p.chunk == tscan.CHUNK == 16 and p.sum_steps == tscan.SUM_STEPS == 8
+    assert p.blocks in tscan.BWD_BLOCKS == (2, 4)
     assert p.chunks * p.chunk >= S > (p.chunks - 1) * p.chunk
-    stage = p.chunk * (p.channels * (4 + 2 * x_bytes) + 2 * p.np * 4)
-    red = 2 * p.chunk * (tscan.CONSUMERS // 32) * 2 * p.np * 4
-    assert p.stages in (2, 3)
-    assert p.smem_bytes == p.stages * (stage + 16) + red <= 227 * 1024
-    if p.stages == 2:
-        assert 3 * (stage + 16) + red > 227 * 1024
-    assert p.ws_bc_floats == p.blocks_d * Bt * S * 2 * N
-    assert p.ws_a_floats == Bt * D * N
-    outs = Bt * S * 2 * N + D * N
-    assert 1 <= p.sum_grid <= tscan.SUM_BLOCKS
-    assert p.sum_grid * tscan.SUM_THREADS >= min(outs, tscan.SUM_BLOCKS
-                                                 * tscan.SUM_THREADS)
+    assert p.seg_chunks * p.segments >= p.chunks \
+        > p.seg_chunks * (p.segments - 1)
+    rows = Bt * p.blocks_d
+    want = min(max(p.chunks, 1),
+               max(1, round(tscan.SMS * p.resident / rows + 1e-9)))
+    assert p.seg_chunks == -(-max(p.chunks, 1) // want) and p.segments <= want
+    assert p.grid == rows * p.segments
+    assert 1 <= p.piece_chunks <= tscan.PIECE
+    assert p.seg_chunks % p.piece_chunks == 0
+    assert all(p.seg_chunks % c for c in range(p.piece_chunks + 1,
+                                               tscan.PIECE + 1))
+    assert p.pieces * p.piece_chunks >= max(p.chunks, 1) \
+        > (p.pieces - 1) * p.piece_chunks
+    assert p.pre_grid == rows * (p.pieces - p.seg_chunks // p.piece_chunks)
+    assert (p.pre_grid == 0) == (p.segments == 1)
+    stage = (p.chunk * (p.channels * (4 + 2 * x_bytes) + 2 * p.np * 4)
+             + p.channels * p.np * 4)
+    part = p.sum_steps * 2 * (p.threads // 32 * p.np + p.threads) * 4
+    stash = tscan.STASH * p.threads * p.states_per_lane * 4
+    assert p.smem_bytes == 2 * stage + 2 * part + stash <= 227 * 1024
+    fit = 228 * 1024 // (p.smem_bytes + 1024)
+    assert p.blocks == (4 if fit >= 4 else 2)
+    assert p.resident == min(p.blocks, fit) >= 2
+    assert p.ws_bc_floats == p.blocks_d * Bt * S * 2 * p.np
+    assert p.ws_a_floats == Bt * p.segments * D * p.np
+    assert p.ws_floats == p.ws_bc_floats + p.ws_a_floats \
+        + Bt * p.pieces * D * (p.np + 1)
+    assert p.sum_grid == -(-Bt * S * 2 * N // tscan.SUM_OUT) \
+        + -(-D * N // (tscan.SUM_OUT * tscan.SUM_SLICES))
     assert tscan.chunk_states_shape(Bt, S, D, N) == (Bt, p.chunks, D, p.np)
 
 
 def test_mamba_scan_bwd_plan_at_the_microbatch_shape():
     """falcon-mamba-7b's training microbatch (1, 1024, 8192, 16), x bf16:
-    128 blocks of 64 channels, 64 chunks through 3 stages; its chunk
-    states are 32 MiB, the dB and dC partials 16 MiB."""
+    256 channel blocks of 32, 4 blocks an SM (56 KB each), so 2 segments
+    of 32 chunks: 512 blocks; the pre-pass's 16 pieces of 4 chunks, 8 of
+    them after the first segment: 2 048 blocks; its chunk states are 32
+    MiB, the dB and dC partials 32 MiB, the dA partials 1 MiB. The
+    ragged-S case (1, 1000, 512, 16), x fp32 (60 KB a block: 3 fit an SM,
+    so the 2-block register bound): 16 segments of 4 chunks."""
     p = tscan.plan_bwd(1, 1024, 8192, 16, 2)
-    assert (p.lanes, p.channels, p.grid, p.chunks, p.stages) == (4, 64, 128,
-                                                                  64, 3)
+    assert (p.lanes, p.channels, p.blocks_d, p.blocks, p.resident,
+            p.smem_bytes) == (4, 32, 256, 4, 4, 57344)
+    assert (p.chunks, p.segments, p.seg_chunks, p.grid) == (64, 2, 32, 512)
+    assert (p.piece_chunks, p.pieces, p.pre_grid) == (4, 16, 2048)
     assert 4 * int(np.prod(tscan.chunk_states_shape(1, 1024, 8192, 16))) \
         == 32 * 2 ** 20
-    assert 4 * p.ws_bc_floats == 16 * 2 ** 20
+    assert 4 * p.ws_bc_floats == 32 * 2 ** 20
+    assert 4 * p.ws_a_floats == 2 ** 20
+    q = tscan.plan_bwd(1, 1000, 512, 16, 4)
+    assert (q.chunks, q.segments, q.seg_chunks, q.grid, q.piece_chunks,
+            q.pre_grid) == (63, 16, 4, 256, 4, 240)
+
+
+@pytest.mark.parametrize("case", [
+    ((1, 1024, 8192, 16, 2), (2, 32, 512, 2048, 4, 16)),
+    ((1, 4096, 8192, 16, 2), (2, 128, 512, 8192, 4, 64)),
+    ((4, 1024, 8192, 16, 2), (1, 64, 1024, 0, 4, 16)),
+    ((1, 1024, 2048, 16, 2), (8, 8, 512, 896, 4, 16)),
+    ((1, 160, 4224, 16, 2), (4, 3, 528, 396, 3, 4)),
+    ((1, 192, 2816, 16, 2), (6, 2, 528, 440, 2, 6)),
+    ((1, 100, 640, 16, 4), (7, 1, 140, 120, 1, 7)),
+    ((2, 40, 64, 4, 2), (3, 1, 6, 4, 1, 3)),
+    ((1, 1, 8192, 16, 2), (1, 1, 256, 0, 1, 1)),
+], ids=lambda c: "x".join(map(str, c[0])))
+def test_mamba_scan_bwd_plan_takes_segments(case):
+    """The plan's segments, worked out by hand (segments, chunks a
+    segment, grid, pre-pass grid, chunks a piece, pieces): the nearest
+    whole number of segments that fills every SM's resident blocks once
+    (132 x 4 blocks an SM in bf16 at N = 16, 132 x 2 in fp32), cut to the
+    chunks, then evened out (10 chunks in 4 segments of 3, 3-chunk
+    pieces); one segment, and no pre-pass, where the channel blocks fill
+    the card or S is one chunk."""
+    (Bt, S, D, N, x_bytes), got = case
+    p = tscan.plan_bwd(Bt, S, D, N, x_bytes)
+    assert (p.segments, p.seg_chunks, p.grid, p.pre_grid, p.piece_chunks,
+            p.pieces) == got
 
 
 def test_mamba_scan_bwd_plan_matches_the_instances_in_csrc():
@@ -949,10 +1107,19 @@ def test_mamba_scan_bwd_plan_matches_the_instances_in_csrc():
                  re.findall(r"REPRO_SCAN_BWD\((\d+), (\d+)\)\n", src)}
     assert {(tscan.plan_bwd(1, 8, 64, n, 2).np, tscan.STATES_PER_LANE)
             for n in range(1, tscan.MAX_N + 1)} == instances
-    for name, value in (("CONSUMERS", tscan.CONSUMERS),
+    for name, value in (("THREADS", tscan.BWD_THREADS),
+                        ("SPL", tscan.STATES_PER_LANE),
+                        ("STASH", tscan.STASH),
                         ("SMEM_BLOCK", tscan.SMEM_BLOCK),
-                        ("SUM_THREADS", tscan.SUM_THREADS)):
+                        ("SUM_OUT", tscan.SUM_OUT),
+                        ("SUM_SLICES", tscan.SUM_SLICES)):
         assert re.search(rf"constexpr int {name} = {value};", src), name
+    assert "constexpr int HALF = CHUNK / 2;" in src
+    assert tscan.SUM_STEPS == tscan.CHUNK // 2
+    assert "__launch_bounds__(THREADS, MIN_BLOCKS)" in src
+    assert "BLOCKS = 4 * (BYTES + 1024) <= SMEM_SM ? 4 : 2;" in src
+    assert tscan.BWD_BLOCKS == (2, 4)
+    assert re.search(rf"constexpr int SMEM_SM = {tscan.SMEM_SM};", src)
     head = os.path.join(os.path.dirname(tscan.__file__), "csrc",
                         "mamba_scan.cuh")
     with open(head) as f:
@@ -960,11 +1127,16 @@ def test_mamba_scan_bwd_plan_matches_the_instances_in_csrc():
 
 
 def test_mamba_scan_bwd_source_has_no_atomics():
-    """Every block writes its own partial sums and a second kernel adds
-    them in a fixed order: the source and the headers it includes hold no
-    atomic operation and no reducing store or copy."""
+    """Every block writes its own partial sums and carries (the pre-pass
+    too) and a last kernel adds them in a fixed order: the source, its
+    three kernels, and the headers it includes hold no atomic operation
+    and no reducing store or copy."""
     csrc = os.path.join(os.path.dirname(tscan.__file__), "csrc")
     src = _scan_bwd_csrc()
+    for kernel in ("mamba_scan_bwd_carry(", "mamba_scan_bwd(",
+                   "mamba_scan_bwd_sum("):
+        assert f"__global__" in src.split(kernel)[0].rsplit("\n\n", 1)[-1], \
+            kernel
     heads = re.findall(r'#include "(\w+\.cuh)"', src)
     assert set(heads) == {"mamba_scan.cuh", "mma_bf16.cuh", "sm90.cuh"}
     for text in [src] + [open(os.path.join(csrc, h)).read() for h in heads]:
