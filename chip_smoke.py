@@ -5,10 +5,51 @@
     python3 chip_smoke.py --only flash-bwd   # build, then phase 8(a) alone,
                                              # each launch profiled
     python3 chip_smoke.py --only scan-bwd    # build, then phase 8(a') alone
+    python3 chip_smoke.py --only stream      # build, then phase 1'(a) alone
 
 1. Prints the card's name and power limit, then builds the seven CUDA
    kernels from ``src/repro_torch/kernels/csrc`` with nvcc (sm_90a), one
    nvcc process each, all at once.
+1'. (a) mixtral-8x7b at full depth (93.4 GB of bf16 weights, more than
+   the card's 80 GB), streamed layer by layer through the SVM executor,
+   first of the phases, while the host's memory is the freest. Every
+   layer is its own ``remainder/r<i>`` subtree (``unstacked``); the
+   params are drawn on the card one leaf at a time from seed 0, with
+   ``bridge.init_params``' bits, and copied into pinned host blocks
+   (``host_blocks``: powers of two of at most STREAM_BLOCK bytes, so the
+   pinned allocator pads none), which the executor takes as they are.
+   The depth is cut to what fits the host's available memory beside
+   STREAM_HOST_RESERVE, and a cut is printed. A ``StreamingExecutor``
+   with a pool of SVM_FRAC of the weights (H100 preset) serves them
+   through ``run_layer_stream`` in layer order (the embed, each layer's
+   leaves, the final norm and the head): ``LayerStream`` runs the port's
+   own layer (``models.transformer._apply_layer``) on the leaves it is
+   handed, a prefill of BATCH x PROMPT tokens with ``prompt_len``-wide
+   decode buffers as ``launch/steps.make_prefill_step`` keeps them, then
+   STREAM_DECODE greedy decode tokens, for each of STREAM_POLICIES (lrf
+   naive; svm_aware: embed and head pinned, prefetch). It fails unless
+   the managed leaves in the pool keep to the budget at every layer, the
+   launches by kernel and route are ``check_routes``' (every projection,
+   the router and every expert product on wgmma in prefill and on decode
+   in a token; one flash launch a layer in prefill, none in a token),
+   the two policies give bit-equal logits and tokens, each run's
+   ``metrics()`` equals a ``materialize=False`` replay of the same layer
+   paths and flops with ``==``, the card's peak stays under
+   STREAM_PEAK_GB, the first STREAM_CHECK_LAYERS layers of the same host
+   tree streamed give the bits of the same layers resident
+   (``make_prefill_step`` and ``decode_step``), and the host leaves' sums
+   after it all are the ones drawn. It prints each policy's real prefill
+   and token walls (CUDA events) beside the executor's simulated ones,
+   the bytes copied host to device, migrations and evictions.
+   (b) Each example of ``examples/torch`` once on the card, at its own
+   size (``train_oversubscribed`` for EXAMPLE_TRAIN_STEPS steps), and on
+   the CPU with the same arguments. The two that train draw their params
+   on the host, so both runs start from the same bits: every loss they
+   print is within EXAMPLE_LOSS_TOL of the CPU's, quickstart's decoded
+   ids are the CPU's, and both launch the matmul and flash kernels. The
+   SVM lines (``serve_streaming``'s and ``serve_multitenant``'s output,
+   ``train_oversubscribed``'s offload schedule) come from the simulated
+   clock, which no device changes, and equal the CPU run's with ``==``.
 2. Holds the matmul kernel against its plain version at every shape the
    gemma3-1b serving path gives it (decode M=4, prefill M=4096), plus
    ragged and fp32 cases, the wgmma route's threshold (M = 64, 63) and
@@ -306,6 +347,30 @@ NEW_PROFILED = (MOE_ARCH, "granite-20b")
 NEW_PREFILL_REPEATS = 2
 PATHS_LAYERS = 4
 DEPTH_CUT = {"mixtral-8x7b": 8}
+# mixtral-8x7b streamed at full depth (stream_phase): the weights made
+# leaf by leaf into pinned host blocks of at most STREAM_BLOCK bytes, with
+# STREAM_HOST_RESERVE of host memory left beside them (the depth is cut to
+# what fits); a pool of SVM_FRAC of them; each of STREAM_POLICIES through
+# a prefill and STREAM_DECODE tokens (cut from DECODE: every token moves
+# most of the 93 GB over the host link); its first STREAM_CHECK_LAYERS
+# layers streamed against resident; the card's peak under STREAM_PEAK_GB
+STREAM_ARCH = "mixtral-8x7b"
+STREAM_DECODE = 8
+STREAM_CHECK_LAYERS = 8
+STREAM_BLOCK = 8 << 30
+STREAM_HOST_RESERVE = 4 * 10 ** 9
+STREAM_PEAK_GB = 80
+STREAM_POLICIES = {"naive": {},
+                   "svm_aware": dict(prefetch=True, pin=("embed", "lm_head"))}
+# the port's examples (examples/torch), each run once on the card and once
+# on the CPU; train_oversubscribed for EXAMPLE_TRAIN_STEPS steps
+EXAMPLES = ("quickstart", "serve_streaming", "serve_multitenant",
+            "train_oversubscribed")
+EXAMPLE_TRAIN_STEPS = 3
+# every loss the two training examples print, card against CPU from the
+# same params, relative: 10x the largest reading (2.1e-5 quickstart,
+# 9.5e-5 train_oversubscribed, at the printed 4 and 3 decimals)
+EXAMPLE_LOSS_TOL = 1e-3
 # the VLM and the encoder-decoder, served whole at full width by lighter
 # phases (NEW_PREFILL_REPEATS repeats); the device profile for the VLM
 # only, the SVM phase and a launcher run for the encoder-decoder only.
@@ -1677,15 +1742,11 @@ def serve_phase(cfg, repeats: int = PREFILL_REPEATS, profile: bool = True,
 
 
 def param_sums(params) -> dict:
-    """Each leaf's bits summed as integers, one period slice at a time (a
-    whole stacked leaf widened to int64 would not fit): what a kernel that
-    writes into the served weights would change."""
+    """Each leaf's ``leaf_sums``: what a kernel that writes into the served
+    weights would change."""
     from repro_torch.bridge import leaves
 
-    ints = {torch.bfloat16: torch.int16, torch.float32: torch.int32}
-    return {path: [int(t.view(ints[x.dtype]).sum(dtype=torch.int64))
-                   for t in (x if x.dim() > 2 else (x,))]
-            for path, x in leaves(params)}
+    return {path: leaf_sums(x) for path, x in leaves(params)}
 
 
 def check_params_unchanged(name: str, params, sums: dict, where: str) -> None:
@@ -2317,14 +2378,15 @@ def check_scan_launches(cfg, prefill: int, total: int) -> None:
                              f"expected {want}")
 
 
-def check_routes(cfg, prefill: dict, decode: dict, flash: dict | None) -> None:
+def check_routes(cfg, prefill: dict, decode: dict, flash: dict | None,
+                 tokens: int = DECODE) -> None:
     """Every prefill projection took the wgmma route and the LM head (the
-    last position only, M = BATCH) the decode route; every decode matmul
-    took the decode route; every prefill attention call (one a layer) took
-    the flash kernel's wgmma route."""
+    last position only, M = BATCH) the decode route; every matmul of the
+    ``tokens`` decode tokens took the decode route; every prefill
+    attention call (one a layer) took the flash kernel's wgmma route."""
     proj = sum(per for *_, per in projections(cfg)) * cfg.n_layers
     want_pre = dict.fromkeys(prefill, 0) | {"wgmma": proj, "decode": 1}
-    want_dec = dict.fromkeys(decode, 0) | {"decode": (proj + 1) * DECODE}
+    want_dec = dict.fromkeys(decode, 0) | {"decode": (proj + 1) * tokens}
     if prefill != want_pre or decode != want_dec:
         raise AssertionError(f"{cfg.name}: matmul routes prefill {prefill}, "
                              f"decode {decode}; expected {want_pre} and "
@@ -3233,6 +3295,582 @@ def train_phases(served_sums: dict) -> dict:
                 run=run, mamba=mamba, launcher=launcher, seconds=seconds)
 
 
+# ------------------------------- mixtral-8x7b streamed at full depth
+
+def unstacked(cfg, n_layers: int):
+    """``cfg`` at ``n_layers`` with every layer its own ``remainder/r<i>``
+    subtree: layer and FFN patterns one longer than the depth, as
+    ``examples/serve_streaming.py`` makes its streaming unit."""
+    import dataclasses
+
+    kinds = [(cfg.layer_pattern[j % len(cfg.layer_pattern)],
+              cfg.ffn_pattern[j % len(cfg.ffn_pattern)])
+             for j in range(n_layers + 1)]
+    return dataclasses.replace(cfg, n_layers=n_layers,
+                               layer_pattern=tuple(m for m, _ in kinds),
+                               ffn_pattern=tuple(f for _, f in kinds))
+
+
+def stream_layer_paths(cfg) -> list[list[str]]:
+    """``run_layer_stream``'s groups for an unstacked decoder ``cfg``: the
+    embed, each layer's leaves, then the final norm with the head (the
+    embed again when it is tied)."""
+    from repro_torch.bridge import leaves, param_shapes
+
+    flat = [p for p, _ in leaves(param_shapes(cfg))]
+    head = "embed" if cfg.tie_embeddings else "lm_head"
+    return ([["embed"]]
+            + [sorted(p for p in flat if p.startswith(f"remainder/r{i}/"))
+               for i in range(cfg.n_layers)]
+            + [["final_norm", head]])
+
+
+def _pow2(n: int) -> int:
+    return 1 << max(n - 1, 0).bit_length()
+
+
+def host_blocks(sizes: list[int], cap: int = STREAM_BLOCK
+                ) -> tuple[list[int], list[tuple[int, int]]]:
+    """Leaves of ``sizes`` bytes packed into host blocks of at most ``cap``
+    bytes, largest leaf first into the first block with room, 512-byte
+    aligned: (block sizes, (block, offset) of each leaf). Every block is a
+    power of two, the size torch's pinned allocator rounds a request up
+    to, so none is padded (mixtral-8x7b's 0.94 GB expert leaves, 9 to an
+    8 GiB block, leave its small leaves the rest)."""
+    bins, where, left = [], [None] * len(sizes), sum(sizes)
+    for i in sorted(range(len(sizes)), key=lambda i: -sizes[i]):
+        n = sizes[i]
+        for b, (used, size) in enumerate(bins):
+            off = -(-used // 512) * 512
+            if off + n <= size:
+                break
+        else:
+            bins.append([0, max(min(cap, _pow2(left)), _pow2(n))])
+            b, off = len(bins) - 1, 0
+        where[i] = (b, off)
+        bins[b][0] = off + n
+        left -= n
+    return [min(size, _pow2(used)) for used, size in bins], where
+
+
+def leaf_sums(x) -> list[int]:
+    """A leaf's bits summed as integers, one slice of its first axis at a
+    time when it has more than two (a whole stacked leaf widened to int64
+    would not fit)."""
+    ints = {torch.bfloat16: torch.int16, torch.float32: torch.int32}
+    return [int(t.view(ints[x.dtype]).sum(dtype=torch.int64))
+            for t in (x if x.dim() > 2 else (x,))]
+
+
+def host_params(cfg, device, pin: bool):
+    """``bridge.init_params(cfg, seed=0, device=device)``, bit for bit,
+    in host memory: each leaf drawn on ``device`` alone, its sums taken
+    there, then copied into its place in ``host_blocks`` (page-locked
+    when ``pin``) and freed, so that one leaf at a time is on the card.
+    Returns (the tree of host views, the blocks, the sums as drawn)."""
+    from repro_torch.bridge import _init_leaves, leaves, param_shapes, unflatten
+
+    shapes = [(s, dt) for _, (s, dt) in leaves(param_shapes(cfg))]
+    sizes = [math.prod(s) * dt.itemsize for s, dt in shapes]
+    bsizes, where = host_blocks(sizes)
+    blocks = [torch.empty(n, dtype=torch.uint8, pin_memory=pin)
+              for n in bsizes]
+    flat, sums = {}, {}
+    for (path, x), (b, off), n in zip(_init_leaves(cfg, 0, device), where,
+                                      sizes):
+        sums[path] = leaf_sums(x)
+        h = blocks[b][off:off + n].view(x.dtype).view(x.shape)
+        h.copy_(x)
+        flat[path] = h
+        del x
+    return unflatten(flat), blocks, sums
+
+
+def host_sums(host, device) -> dict:
+    """``leaf_sums`` of every host leaf, each copied to ``device`` alone."""
+    from repro_torch.bridge import leaves
+
+    return {p: leaf_sums(x.to(device, non_blocking=True))
+            for p, x in leaves(host)}
+
+
+def stream_flops(cfg, B: int, S: int) -> dict:
+    """Each group's flops for ``run_layer_stream``, in prefill (B x S
+    tokens) and in a decode token (B): 2·M·K·N of every product the
+    matmul kernel runs (``projections``; a MoE layer's experts over their
+    capacity rows, the head on the last position only) and in prefill the
+    flash kernel's 4·D of every visible (query, key) pair of a head; the
+    embed, a gather, none."""
+    from repro_torch.models.moe import capacity
+
+    hd = cfg.resolved_head_dim
+    out = {}
+    for phase, T, Sq in (("prefill", B * S, S), ("decode", B, 0)):
+        layer = 0.0
+        for tag, K, N, per in projections(cfg):
+            M = capacity(cfg, T) if tag in EXPERT_TAGS else T
+            layer += 2.0 * M * K * N * per
+        w = cfg.sliding_window or Sq
+        pairs = sum(min(q + 1, w) for q in range(Sq))
+        layer += 4.0 * hd * pairs * B * cfg.n_heads
+        head = 2.0 * B * cfg.d_model * cfg.padded_vocab
+        out[phase] = [0.0] + [layer] * cfg.n_layers + [head]
+    return out
+
+
+class LayerStream:
+    """``apply_layer`` of ``run_layer_stream`` serving an unstacked decoder
+    ``cfg`` on the leaves it is handed: group 0 embeds, group i runs layer
+    ``r<i-1>`` through ``models.transformer._apply_layer``, the last group
+    the final norm and the head and picks the greedy token. The first
+    pass prefills ``tokens`` as ``launch/steps.make_prefill_step`` does
+    (decode buffers ``prompt_len`` wide, the head on the last position),
+    each later pass decodes the last pick as ``decode_step`` does. Each
+    pass appends its logits and tokens; a group returns ``stream_flops``'
+    flops."""
+
+    def __init__(self, cfg, tokens):
+        if cfg.is_vlm or cfg.is_encdec or cfg.n_periods:
+            raise ValueError(f"{cfg.name}: not an unstacked decoder")
+        self.cfg, self.tokens = cfg, tokens
+        self.kinds = cfg.layer_kinds()
+        self.flops = stream_flops(cfg, *tokens.shape)
+        self.caches = [None] * cfg.n_layers
+        self.t = None
+        self.logits, self.out = [], []
+
+    def __call__(self, i: int, tensors: dict) -> float:
+        from repro_torch.bridge import unflatten
+        from repro_torch.models.config import MAMBA
+        from repro_torch.models.layers import embed_apply, rms_norm
+        from repro_torch.models.transformer import (_apply_layer,
+                                                    _buffer_width,
+                                                    _kv_to_buffer, _lm_head)
+        cfg, prefill = self.cfg, self.t is None
+        B, S = self.tokens.shape
+        if i == 0:
+            ids = self.tokens if prefill else self.out[-1]
+            self.x = embed_apply(tensors["embed"], ids, cfg.embed_scale,
+                                 cfg.d_model)
+            self.positions = (torch.arange(S, dtype=torch.int32,
+                                           device=self.x.device)[None, :]
+                              if prefill else self.t[:, None])
+        elif i <= cfg.n_layers:
+            mixer, ffn = self.kinds[i - 1]
+            lp = unflatten({p.split("/", 2)[2]: t for p, t in tensors.items()})
+            self.x, state, _ = _apply_layer(
+                lp, cfg, self.x, mixer, ffn, positions=self.positions,
+                ctx=None, cache=self.caches[i - 1], impl="auto")
+            if prefill:
+                self.caches[i - 1] = state if mixer == MAMBA else \
+                    _kv_to_buffer(state, _buffer_width(cfg, mixer, S))
+        else:
+            x = rms_norm(self.x, tensors["final_norm"], cfg.norm_eps)
+            logits = _lm_head(tensors, cfg, x[:, -1:], "auto")
+            self.logits.append(logits)
+            self.out.append(logits[:, -1].argmax(dim=-1).int()[:, None])
+            self.t = (torch.full((B,), S, dtype=torch.int32, device=x.device)
+                      if prefill else self.t + 1)
+            del self.x
+        return self.flops["prefill" if prefill else "decode"][i]
+
+
+def stream_run(cfg, host, tokens, decode: int, budget: int, kw: dict,
+               device, counts=None) -> dict:
+    """Serve ``cfg`` streamed from the ``host`` leaves through a
+    ``StreamingExecutor`` with a pool of ``budget`` bytes and ``kw``: one
+    ``run_layer_stream`` pass that prefills, then ``decode`` passes that
+    decode. Checks after every group that the managed leaves in the pool
+    keep to the budget, and that the executor took the host leaves as
+    they are. Counts the bytes copied host to device: the leaves handed
+    to a group from outside the pool, and the pool's copies after each
+    pass. ``counts()``, when given, is read after the prefill and after
+    the decode."""
+    import weakref
+
+    from repro_torch.bridge import leaves
+    from repro_torch.launch.serve import _Timer
+    from repro_torch.svm import StreamingExecutor, run_layer_stream
+
+    paths = stream_layer_paths(cfg)
+    sizes = {p: x.numel() * x.element_size() for p, x in leaves(host)}
+    ex = StreamingExecutor(host, budget, device=device, **kw)
+    moved = [p for (p, a), (_, b) in zip(leaves(ex.host_params), leaves(host))
+             if a.data_ptr() != b.data_ptr()]
+    if moved:
+        raise AssertionError(f"stream {cfg.name}: the executor copied "
+                             f"{len(moved)} host leaves, e.g. {moved[:3]}")
+    served = LayerStream(cfg, tokens)
+    flops, h2d, pool_max, seen = [], [0], [0], [{}]
+
+    def pool_copies() -> int:   # the pool's tensors made since ``seen``
+        old = seen[0]
+        return sum(sizes[p] for p, t in ex.pool().items()
+                   if p not in old or old[p]() is not t)
+
+    def mark(pool) -> None:
+        seen[0] = {p: weakref.ref(t) for p, t in pool.items()}
+
+    def apply(i, tensors):
+        if i == 0:
+            h2d[0] += pool_copies()
+            flops.append([])
+        pool = ex.pool()
+        h2d[0] += sum(sizes[p] for p, t in tensors.items()
+                      if pool.get(p) is not t)
+        pool_max[0] = max(pool_max[0], ex.pool_bytes())
+        if pool_max[0] > budget:
+            raise AssertionError(f"stream {cfg.name}: {pool_max[0]} bytes "
+                                 f"of managed leaves in the pool at group "
+                                 f"{i}, over the budget of {budget}")
+        flops[-1].append(served(i, tensors))
+        if i == len(paths) - 1:
+            mark(pool)
+        return flops[-1][-1]
+
+    clock, out = _Timer(torch.device(device)), {}
+    for phase, steps in (("prefill", 1), ("decode", decode)):
+        h2d[0] = 0
+        clock.start()
+        m = run_layer_stream(ex, paths, apply, steps=steps)
+        h2d[0] += pool_copies()
+        mark(ex.pool())
+        out[phase] = dict(ms=clock.stop(), h2d_bytes=h2d[0],
+                          wall_s=m["wall_s"], migrations=m["migrations"],
+                          evictions=m["evictions"],
+                          counts=None if counts is None else counts())
+    out["decode"]["ms_per_token"] = out["decode"]["ms"] / decode
+    for k in ("wall_s", "migrations", "evictions"):
+        out["decode"][k] -= out["prefill"][k]
+    metrics = ex.metrics()
+    replay = StreamingExecutor(host, budget, device=device, **kw)
+    for f in flops:
+        replay.decode_step(paths, f, materialize=False)
+    if replay.metrics() != metrics:
+        raise AssertionError(f"stream {cfg.name} {kw}: metrics() differs "
+                             f"from a materialize=False replay of the same "
+                             f"layer paths and flops")
+    del ex, replay
+    return dict(out, metrics=metrics, flops=flops, max_pool_bytes=pool_max[0],
+                budget=budget, logits=served.logits, tokens=served.out)
+
+
+def resident_run(cfg, params, tokens, decode: int):
+    """The port's own serving path on resident params: ``make_prefill_step``,
+    then ``decode`` greedy ``decode_step`` calls -> (logits, tokens) of
+    each pass."""
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models.transformer import decode_step
+
+    logits, cache = make_prefill_step(cfg)(params, tokens)
+    all_logits = [logits]
+    out = [logits[:, -1].argmax(dim=-1).int()[:, None]]
+    for _ in range(decode):
+        logits, cache = decode_step(params, cfg, out[-1], cache)
+        all_logits.append(logits)
+        out.append(logits[:, -1].argmax(dim=-1).int()[:, None])
+    return all_logits, out
+
+
+def same_bits(a: list, b: list) -> bool:
+    return len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def first_layers(host, n: int) -> dict:
+    """The embed, final norm and head of an unstacked ``host`` tree with
+    its first ``n`` layers: the same tensors, no copy."""
+    return dict(host, remainder={f"r{i}": host["remainder"][f"r{i}"]
+                                 for i in range(n)})
+
+
+def mem_available() -> int:
+    with open("/proc/meminfo") as f:
+        info = dict(line.split(":", 1) for line in f)
+    return int(info["MemAvailable"].split()[0]) * 1024
+
+
+def stream_depth(full, avail: int) -> int:
+    """The most layers of ``full`` whose pinned host blocks fit beside
+    STREAM_HOST_RESERVE in ``avail`` bytes of host memory."""
+    from repro_torch.bridge import leaves, param_shapes
+
+    for n in range(full.n_layers, 0, -1):
+        sizes = [math.prod(s) * dt.itemsize for _, (s, dt) in
+                 leaves(param_shapes(unstacked(full, n)))]
+        if sum(host_blocks(sizes)[0]) + STREAM_HOST_RESERVE <= avail:
+            return n
+    return 0
+
+
+def check_stream_routes(cfg, pre: dict, total: dict) -> None:
+    """The streamed prefill and decode took the routes ``check_routes``
+    asks of a resident one; no attention call of a decode token reaches
+    the flash kernel (decode attention is plain PyTorch)."""
+    mm = {r: n - pre["matmul"].get(r, 0) for r, n in total["matmul"].items()}
+    fa = {r: n - pre["flash_attention"].get(r, 0)
+          for r, n in total["flash_attention"].items()}
+    check_routes(cfg, pre["matmul"], {r: n for r, n in mm.items() if n},
+                 pre["flash_attention"], tokens=STREAM_DECODE)
+    if any(fa.values()):
+        raise AssertionError(f"stream {cfg.name}: flash launches in decode "
+                             f"{fa}")
+
+
+def stream_phase(card: str) -> dict:
+    """mixtral-8x7b at full depth, streamed layer by layer through the SVM
+    executor from pinned host memory (see the module docstring)."""
+    from repro_torch.bridge import leaves, tree_map
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+
+    t_phase = time.perf_counter()
+    full = get_config(STREAM_ARCH)
+    free_memory()
+    if hasattr(torch._C, "_host_emptyCache"):   # earlier phases' pinned blocks
+        torch._C._host_emptyCache()
+    print("stream host memory (free -g):\n" + subprocess.run(
+        ["free", "-g"], capture_output=True, text=True).stdout.rstrip(),
+        flush=True)
+    avail = mem_available()
+    n = stream_depth(full, avail)
+    if n < STREAM_CHECK_LAYERS:
+        raise AssertionError(f"stream {full.name}: {avail / 1e9:.1f} GB of "
+                             f"host memory hold {n} layers pinned")
+    cfg = unstacked(full, n)
+    if n < full.n_layers:
+        print(f"stream {full.name}: DEPTH CUT by the host: {n} of "
+              f"{full.n_layers} layers fit pinned in {avail / 1e9:.2f} GB "
+              f"available beside {STREAM_HOST_RESERVE / 1e9:.0f} GB",
+              flush=True)
+    toks = serve.prompts(cfg, BATCH, PROMPT, "cuda")
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        host, blocks, sums = host_params(cfg, "cuda", pin=True)
+    torch.cuda.synchronize()
+    pin_s = time.perf_counter() - t0
+    flat = dict(leaves(host))
+    total = sum(x.numel() * x.element_size() for x in flat.values())
+    if not all(x.is_pinned() for x in flat.values()):
+        raise AssertionError(f"stream {cfg.name}: a host leaf is not pinned")
+    budget = int(total * SVM_FRAC)
+    print(f"stream {cfg.name}: {n} of {full.n_layers} layers unstacked, "
+          f"{total / 1e9:.3f} GB of bf16 weights made on the card leaf by "
+          f"leaf into {len(blocks)} pinned host blocks "
+          f"({sum(b.numel() for b in blocks) / 1e9:.3f} GB) in {pin_s:.1f} "
+          f"s; {mem_available() / 1e9:.2f} GB of host memory left; pool "
+          f"{budget / 1e9:.3f} GB ({SVM_FRAC} of the weights), H100 preset; "
+          f"batch {BATCH}, prompts {PROMPT}, {STREAM_DECODE} decode tokens",
+          flush=True)
+    runs = {}
+    with torch.inference_mode():
+        for name, kw in STREAM_POLICIES.items():
+            free_memory()
+            torch.cuda.reset_peak_memory_stats()
+            _reset_counts()
+            r = stream_run(cfg, host, toks, STREAM_DECODE, budget, kw,
+                           "cuda", counts=_read_counts)
+            peak = torch.cuda.max_memory_allocated()
+            pre, dec = r["prefill"], r["decode"]
+            check_stream_routes(cfg, pre["counts"], dec["counts"])
+            if peak >= STREAM_PEAK_GB * 1e9:
+                raise AssertionError(f"stream {cfg.name} {name}: peak "
+                                     f"{peak / 1e9:.2f} GB")
+            r["peak_memory_bytes"] = peak
+            seq = torch.cat(r["tokens"], dim=1)
+            if not torch.isfinite(torch.cat(r["logits"]).float()).all() or \
+                    int(seq.min()) < 0 or int(seq.max()) >= cfg.vocab:
+                raise AssertionError(f"stream {cfg.name} {name}: non-finite "
+                                     f"logits or tokens out of the vocab")
+            sim_pre, sim_dec = pre["wall_s"] * 1e3, \
+                dec["wall_s"] * 1e3 / STREAM_DECODE
+            print(f"stream {cfg.name} {name} ({card}): prefill "
+                  f"{BATCH}x{PROMPT} {pre['ms']:.1f} ms real, "
+                  f"{sim_pre:.1f} ms simulated ({pre['ms'] / sim_pre:.3f}x), "
+                  f"{pre['h2d_bytes'] / 1e9:.3f} GB host to device, "
+                  f"{pre['migrations']} migrations / {pre['evictions']} "
+                  f"evictions; decode {dec['ms_per_token']:.1f} ms a token "
+                  f"real, {sim_dec:.1f} ms simulated "
+                  f"({dec['ms_per_token'] / sim_dec:.3f}x), "
+                  f"{dec['h2d_bytes'] / STREAM_DECODE / 1e9:.3f} GB host to "
+                  f"device a token, {dec['migrations']} migrations / "
+                  f"{dec['evictions']} evictions over {STREAM_DECODE} "
+                  f"tokens; pool at most {r['max_pool_bytes'] / 1e9:.3f} of "
+                  f"{budget / 1e9:.3f} GB; card peak {peak / 1e9:.2f} GB; "
+                  f"launches prefill {pre['counts']}, prefill + decode "
+                  f"{dec['counts']}; metrics() == the materialize=False "
+                  f"replay", flush=True)
+            print(f"stream {cfg.name} {name}: continuation {seq[0].tolist()}",
+                  flush=True)
+            runs[name] = r
+        a, b = runs.values()
+        if not (same_bits(a["logits"], b["logits"])
+                and same_bits(a["tokens"], b["tokens"])):
+            raise AssertionError(f"stream {cfg.name}: the policies' logits "
+                                 f"or tokens differ")
+        print(f"stream {cfg.name}: {' and '.join(runs)} bit-equal in every "
+              f"pass's logits and tokens", flush=True)
+
+        # the first layers of the same host tree, streamed and resident
+        free_memory()
+        cut = unstacked(full, STREAM_CHECK_LAYERS)
+        host_cut = first_layers(host, STREAM_CHECK_LAYERS)
+        cut_bytes = sum(x.numel() * x.element_size()
+                        for _, x in leaves(host_cut))
+        s = stream_run(cut, host_cut, toks, STREAM_DECODE,
+                       int(cut_bytes * SVM_FRAC), {}, "cuda")
+        resident = tree_map(lambda x: x.to("cuda"), host_cut)
+        clock = serve._Timer(torch.device("cuda"))
+        clock.start()
+        logits, out = resident_run(cut, resident, toks, STREAM_DECODE)
+        res_ms = clock.stop()
+        del resident
+        if not (same_bits(s["logits"], logits) and
+                same_bits(s["tokens"], out)):
+            raise AssertionError(f"stream {cut.name}: {STREAM_CHECK_LAYERS} "
+                                 f"layers streamed and resident differ")
+        print(f"stream {cut.name}: its first {STREAM_CHECK_LAYERS} layers "
+              f"({cut_bytes / 1e9:.3f} GB) streamed (prefill "
+              f"{s['prefill']['ms']:.1f} ms, decode "
+              f"{s['decode']['ms_per_token']:.1f} ms a token) and resident "
+              f"(prefill + {STREAM_DECODE} tokens {res_ms:.1f} ms): logits "
+              f"and tokens bit-equal", flush=True)
+        del s, logits, out
+        free_memory()
+        after = host_sums(host, "cuda")
+    if after != sums:
+        raise AssertionError(f"stream {cfg.name}: the host params changed")
+    del host, flat, blocks
+    free_memory()
+    t0 = time.perf_counter()
+    if hasattr(torch._C, "_host_emptyCache"):
+        torch._C._host_emptyCache()
+    free_s = time.perf_counter() - t0
+    # the host takes the freed pages back gradually, while the next
+    # phases run
+    print(f"stream {cfg.name}: host params unchanged; pinned blocks freed "
+          f"in {free_s:.1f} s, {mem_available() / 1e9:.2f} GB of host memory "
+          f"available; phase {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    keep = ("prefill", "decode", "max_pool_bytes", "budget",
+            "peak_memory_bytes")
+    return dict(arch=full.name, n_layers=n, of=full.n_layers,
+                weight_bytes=total, pin_host_s=pin_s, free_host_s=free_s,
+                host_available_bytes=avail, decode_tokens=STREAM_DECODE,
+                policies={k: {f: r[f] for f in keep}
+                          for k, r in runs.items()},
+                seconds=time.perf_counter() - t_phase)
+
+
+# --------------------------------------------------------- the examples
+
+def run_example(name: str, argv: list[str]) -> tuple[list[str], float]:
+    """``examples/torch/<name>.py``'s ``main(argv)`` in this process ->
+    (its stdout lines, seconds)."""
+    import importlib.util
+    import io
+
+    path = os.path.join(ROOT, "examples", "torch", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(f"example_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        mod.main(argv)
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    return buf.getvalue().splitlines(), time.perf_counter() - t0
+
+
+def example_losses(lines: list[str]) -> list[float]:
+    """Every loss an example prints, in order: ``loss=x`` of a step line
+    and ``loss x -> y`` of a run's last line."""
+    return [float(v) for ln in lines for m in
+            re.finditer(r"loss(?:=| )(\S+)(?: -> (\S+))?", ln)
+            for v in m.groups() if v is not None]
+
+
+def examples_phase() -> dict:
+    """Each of the port's examples once on the card, at its own size
+    (``train_oversubscribed`` for EXAMPLE_TRAIN_STEPS steps), then on the
+    CPU with the same arguments. The two that train draw their params on
+    the host, so both runs start from the same bits: every loss they print
+    is within EXAMPLE_LOSS_TOL of the CPU's, quickstart's decoded ids are
+    the CPU's, and they launch the matmul and flash kernels. The SVM
+    lines (``serve_streaming``'s and ``serve_multitenant``'s whole output,
+    ``train_oversubscribed``'s offload schedule) are the simulated
+    clock's, which no device changes: their ``==`` holds the accounting,
+    and the card's peak memory only shows that the serving examples put
+    their params and pools there."""
+    import tempfile
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in EXAMPLES:
+            argv = (["--steps", str(EXAMPLE_TRAIN_STEPS)]
+                    if name == "train_oversubscribed" else [])
+            runs = {}
+            for dev in ("cuda", "cpu"):
+                ckpt = (["--ckpt", os.path.join(tmp, dev)]
+                        if name == "train_oversubscribed" else [])
+                free_memory()
+                torch.cuda.reset_peak_memory_stats()
+                before = torch.cuda.memory_allocated()
+                _reset_counts()
+                lines, secs = run_example(name, argv + ckpt
+                                          + ["--device", dev])
+                runs[dev] = dict(lines=lines, s=secs, counts=_read_counts(),
+                                 peak=torch.cuda.max_memory_allocated()
+                                 - before)
+            card, cpu = runs["cuda"]["lines"], runs["cpu"]["lines"]
+            counts, peak = runs["cuda"]["counts"], runs["cuda"]["peak"]
+            if any(n for c in runs["cpu"]["counts"].values()
+                   for n in c.values()):
+                raise AssertionError(f"example {name}: the CPU run "
+                                     f"launched {runs['cpu']['counts']}")
+            if peak <= 0:
+                raise AssertionError(f"example {name}: nothing on the card")
+            if name in ("quickstart", "train_oversubscribed"):
+                lc, lh = example_losses(card), example_losses(cpu)
+                rel = [abs(a - b) / abs(b) for a, b in zip(lc, lh)]
+                if not (lc and len(lc) == len(lh)
+                        and all(map(math.isfinite, lc))
+                        and max(rel) <= EXAMPLE_LOSS_TOL):
+                    raise AssertionError(f"example {name}: losses {lc} on "
+                                         f"the card, {lh} on the CPU")
+                if not (counts["matmul"] and counts["flash_attention"]):
+                    raise AssertionError(f"example {name}: launches {counts}")
+                what = (f"losses {lc} (CPU {lh}: relative difference at "
+                        f"most {max(rel):.2e}, within {EXAMPLE_LOSS_TOL})")
+            if name == "quickstart":
+                if card[-1] != cpu[-1]:
+                    raise AssertionError(f"example quickstart: {card[-1]} "
+                                         f"on the card, {cpu[-1]} on the CPU")
+                svm = []
+                what += f"; {card[-1]}, the CPU's"
+            elif name == "train_oversubscribed":
+                svm = [ln for ln in card if ln.startswith("offload schedule")]
+                if len(svm) != 1 or svm != [ln for ln in cpu if
+                                            ln.startswith("offload schedule")]:
+                    raise AssertionError(f"example {name}: {svm} on the card")
+                what += f"; {svm[0]}, equal to the CPU's"
+            else:
+                svm = card
+                if card != cpu:
+                    raise AssertionError(f"example {name}: the card's lines "
+                                         f"{card} differ from the CPU's {cpu}")
+                what = (f"its {len(card)} lines (simulated clock) equal the "
+                        f"CPU's")
+            print(f"example {name} ({' '.join(argv) or 'default'}): "
+                  f"{runs['cuda']['s']:.1f} s on the card ({runs['cpu']['s']:.1f}"
+                  f" s on the CPU); {what}; card peak {peak / 1e9:.3f} GB; "
+                  f"launches {counts}", flush=True)
+            out[name] = dict(card_s=runs["cuda"]["s"], cpu_s=runs["cpu"]["s"],
+                             svm_lines=svm, launches=counts, peak_bytes=peak,
+                             last=card[-1])
+    return out
+
+
 def profile_device(fn, ops: bool = False):
     """(device-busy ms, profiled wall ms, top kernels) of one run of ``fn``
     under torch.profiler: the sum of the device time of every kernel; with
@@ -3281,11 +3919,11 @@ def main(argv=None) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--only", choices=("flash-bwd", "scan-bwd"),
+    ap.add_argument("--only", choices=("flash-bwd", "scan-bwd", "stream"),
                     help="build the kernels and run only phase 8(a), the "
                     "flash backward kernel's cases, or 8(a'), the scan "
                     "backward kernel's, with each launch's profiled device "
-                    "time (no result line)")
+                    "time; or phase 1'(a), mixtral-8x7b streamed")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -3309,9 +3947,17 @@ def main(argv=None) -> int:
     if args.only == "scan-bwd":
         scan_bwd_phase(split=True)
         return 0
+    if args.only == "stream":
+        stream_phase(card)
+        return 0
 
     t_run = time.perf_counter()
     link = link_rates()
+    streamed = stream_phase(card)   # first: the host's memory is the freest
+    examples = examples_phase()
+    free_memory()
+    print(f"stream and examples phases done at "
+          f"{time.perf_counter() - t_run:.1f} s", flush=True)
     gemma = get_config("gemma3-1b")
     mm_rows, mm_phases = matmul_phase(gemma)
     mm_rows += matmul_edge_cases()
@@ -3469,7 +4115,8 @@ def main(argv=None) -> int:
                        serve_mamba=served_m, paper_workloads=work,
                        kernels=kernels, link_bw=link, serving_rate=rates,
                        launcher=launched, sched=sched, new_archs=new,
-                       context_archs=ctxp, train=trained,
+                       context_archs=ctxp, train=trained, stream=streamed,
+                       examples=examples,
                        seconds=time.perf_counter() - t_run), f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(smi())

@@ -143,6 +143,15 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
     bf16 leaf, so a leaf costs its bf16 tensor and one slice's fp32 draw
     at most (granite-20b's (52, 6144, 24576) ``ffn/wo`` is 31.4 GB whole
     in fp32, 0.6 GB a slice)."""
+    return unflatten(dict(_init_leaves(cfg, seed, device)))
+
+
+def _init_leaves(cfg: ModelConfig, seed: int = 0, device=None
+                 ) -> Iterator[tuple[str, torch.Tensor]]:
+    """``init_params``' leaves as (path, tensor), drawn one at a time in
+    tree order from the one generator: a caller that moves each leaf off
+    ``device`` before it takes the next holds one leaf there at a time,
+    and gets the bits of ``init_params``."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
@@ -166,7 +175,8 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
                                    device=dev).mul_(scales.get(name, 0.02)))
         return w
 
-    return unflatten({p: draw(p, s) for p, s in leaves(param_shapes(cfg))})
+    for path, spec in leaves(param_shapes(cfg)):
+        yield path, draw(path, spec)
 
 
 def unflatten(flat: dict[str, object]) -> dict:

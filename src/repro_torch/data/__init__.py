@@ -1,3 +1,8 @@
-from repro_torch.data.pipeline import SyntheticLM, modality_stub
+from repro_torch.data.pipeline import (
+    MemmapTokens,
+    SyntheticLM,
+    batch_iterator,
+    modality_stub,
+)
 
-__all__ = ["SyntheticLM", "modality_stub"]
+__all__ = ["SyntheticLM", "MemmapTokens", "batch_iterator", "modality_stub"]

@@ -147,6 +147,12 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptConfig,
             loss, grads = value_and_grad(params, cfg, tokens, labels, ctx,
                                          impl)
         else:
+            # the reference reshapes the batch to (microbatches, mb, ...),
+            # which raises unless microbatches divide it
+            if tokens.shape[0] % microbatches:
+                raise ValueError(f"a batch of {tokens.shape[0]} rows does "
+                                 f"not split into {microbatches} "
+                                 f"microbatches")
             mb = tokens.shape[0] // microbatches
             grads = tree_map(lambda p: torch.zeros(
                 p.shape, dtype=torch.bfloat16 if p.dtype == torch.bfloat16
