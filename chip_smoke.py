@@ -140,11 +140,14 @@
    8 in decode) against ``torch.bmm``, and at granite-20b's decode
    shapes; then lighter serve phases of granite-moe-1b-a400m,
    granite-3-2b, chatglm3-6b, granite-20b and mixtral-8x7b (full width;
-   mixtral cut to DEPTH_CUT layers): the same launch, route and output
-   checks (the router and every expert product on wgmma in prefill and
-   on decode in decode), 2 prefill repeats, the device profile for
-   granite-moe and granite-20b only, ``compare_paths`` on the first
-   PATHS_LAYERS layers, and the reduced config against the CPU (MoE
+   mixtral cut to DEPTH_CUT layers; its matmul shapes over all 32 layers
+   are timed resident for the streamed run's kernel lines): the same
+   launch, route and output checks (the router and every expert product
+   on wgmma in prefill and on decode in decode), 2 prefill repeats, the
+   device profile for granite-moe and granite-20b only, ``compare_paths``
+   on the first PATHS_LAYERS layers (the others freed first but for
+   granite-moe, whose SVM phase reads them), and the reduced config
+   against the CPU (MoE
    layers replay the CPU's routing: ``RouteTape``). granite-moe also runs
    the SVM phase and the launcher with ``--svm-budget-frac 0.6
    --svm-mode svm_aware --requests 8``.
@@ -167,6 +170,22 @@
    the gates at REDUCED_GATE; seamless also runs the SVM phase and the
    launcher with ``--svm-budget-frac 0.6 --svm-mode svm_aware
    --requests 8``.
+7'. jamba-1.5-large-398b at full width cut to JAMBA_LAYERS = 5 of its 72
+   layers, unstacked as ``remainder/r0..r4`` (the smallest cut that holds
+   each layer kind: (mamba, mlp), (mamba, moe) and (attn, mlp); 48.09 GB
+   of bf16 weights): flash attention at its shape (64:8, D 128, global
+   causal), the scan at (4, 1024, 16384, 16), the matmul kernel at every
+   shape of its prefill and token (the 16 experts' products by
+   ``moe_case``), then its serve phase with the same launch, route and
+   output checks (4 scan launches and 1 flash launch a prefill, none in
+   a token), 2 prefill repeats and the device profile. ``compare_paths``
+   runs on its first JAMBA_PATHS_LAYERS layers (r0, r1), r2 to r4 freed
+   first, on a copy whose Mamba mixers take LOUD_FULL with dt_bias 0
+   (``loud_copy``), after ``check_layers_live`` has shown that zeroing
+   the scan's y, the MLP or the MoE moves that copy's prefill logits
+   beyond MODEL_TOL; the reduced config runs against the CPU with
+   LOUD_MODEL on every Mamba mixer, whose CPU logits must differ from
+   init's beyond MODEL_TOL.
 8. Training (after the serve phases, their memory freed):
    (a) the flash backward kernel (``flash_attention_bwd``) at BWD_CASES:
    granite-3-2b's microbatch (32:8, D 64, causal), gemma3-1b's local
@@ -202,9 +221,10 @@
    relative L2 distance to an fp64 truth within PATH_RATIO of the plain
    version's; timed beside its bound and the plain version, and the
    forward with and without chunk states.
-   (c) One train step (AdamW) of each reduced config on the card against
-   the CPU: loss and grad norm within 2e-2 (MoE layers on the CPU's
-   routing, gates at REDUCED_GATE).
+   (c) One train step (the arch's optimizer: AdamW, adafactor for jamba)
+   of each reduced config on the card against the CPU: loss and grad
+   norm within 2e-2 (MoE layers on the CPU's routing, gates at
+   REDUCED_GATE).
    The matmul kernel at the training shapes of granite-3-2b's microbatch:
    each projection's forward, dA and dW products and the tied head's
    chunk, beside ``torch.matmul`` and the transposes.
@@ -226,10 +246,10 @@
    steps whose launches are exactly ``train_counts`` (the scan forward
    twice and its backward once a layer and microbatch) and whose peak
    memory stays under MAMBA_PEAK_GB.
-   (e) ``python -m repro_torch.launch.train --reduced --steps 8`` into a
-   temporary ``--ckpt``, twice: the second run resumes from step 8 with
-   the first run's state bit for bit; then ``--arch falcon-mamba-7b``
-   once, on CUDA.
+   (e) ``python -m repro_torch.launch.train --reduced --steps 4`` into a
+   temporary ``--ckpt``, twice: the second run resumes from step 4 with
+   the first run's state bit for bit; then ``--arch
+   jamba-1.5-large-398b`` once, on CUDA (adafactor).
 9. The paper's Category-I and Category-II workloads: holds the STREAM
    triad and Jacobi-2d kernels against their plain versions bit for bit
    (fp32 triad: at most 1 ulp, the count printed) at (32768, 32768) in
@@ -247,15 +267,17 @@
 11. Prints one JSON line of kernel numbers, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
-Every time is the median over repeats, timed with CUDA events; matmul
-timings cycle through copies of B that exceed the 50 MB L2, so weights are
-read cold, as in a decode step, and are read after ``free_memory`` (with
-``ms_cached`` before it, as for the data kernels). Per-case detail goes to
+Every time is the median over repeats, timed with CUDA events; a plain
+version is timed once (``time_plain_ms``); matmul timings cycle through
+copies of B that exceed the 50 MB L2, so weights are read cold, as in a
+decode step, and are read after ``free_memory`` (with ``ms_cached``
+before it, as for the data kernels). Per-case detail goes to
 ``chiprun_out/chip_smoke.json``. Any failure exits non-zero.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import gc
 import json
@@ -295,10 +317,17 @@ SCAN_TOL = {torch.float32: dict(rtol=2e-3, atol=2e-3, atol_rel=1e-3),  # test_ke
             torch.bfloat16: dict(rtol=8e-3, atol_rel=1e-3)}
 H_TOL = dict(rtol=2e-3, atol=2e-3, atol_rel=1e-3)   # the fp32 state, fp32 in both versions
 MODEL_TOL = dict(rtol=2e-2, atol=2e-2, atol_rel=2e-2)  # the repo's bf16 model tolerance (test_arch_smoke)
-# gains on the init of the reduced falcon-mamba's mixers, with dt_bias 0, so
+# gains on the init of a reduced config's Mamba mixers, with dt_bias 0, so
 # that its Mamba layers move the logits it is checked by (as
 # tests/test_torch_mamba.py's LOUD_MODEL)
 LOUD_MODEL = {"in_proj": 3.0, "conv_w": 3.0, "x_proj": 3.0, "out_proj": 1.0}
+# the same for jamba's full-width path check (``loud_copy``), with dt_bias
+# 0: LOUD_MODEL's gains were sized at d_model 64, and at 8192 the init's
+# 0.02-std weights already grow each projection's output with its width,
+# so the in_proj, conv_w and x_proj gains would compound into a Mamba
+# output far above the FFNs'; ``check_layers_live`` fails the run unless
+# zeroing the scan's y, the MLP or the MoE each moves this copy's logits
+LOUD_FULL = {"out_proj": 4.0}
 # the paper workloads' grid: 4 GiB per fp32 array, 85x the L2 (STREAM asks
 # for 4x the last-level cache); BIG has more than 2^31 elements
 GRID = (32768, 32768)
@@ -352,10 +381,11 @@ DEPTH_CUT = {"mixtral-8x7b": 8}
 # STREAM_HOST_RESERVE of host memory left beside them (the depth is cut to
 # what fits); a pool of SVM_FRAC of them; each of STREAM_POLICIES through
 # a prefill and STREAM_DECODE tokens (cut from DECODE: every token moves
-# most of the 93 GB over the host link); its first STREAM_CHECK_LAYERS
-# layers streamed against resident; the card's peak under STREAM_PEAK_GB
+# most of the 93 GB over the host link; 4, not 8, to pay for jamba's
+# phase); its first STREAM_CHECK_LAYERS layers streamed against resident;
+# the card's peak under STREAM_PEAK_GB
 STREAM_ARCH = "mixtral-8x7b"
-STREAM_DECODE = 8
+STREAM_DECODE = 4
 STREAM_CHECK_LAYERS = 8
 STREAM_BLOCK = 8 << 30
 STREAM_HOST_RESERVE = 4 * 10 ** 9
@@ -419,7 +449,16 @@ MAMBA_ARCH = "falcon-mamba-7b"
 MAMBA_TRAIN_BATCH = 16
 MAMBA_TRAIN_LAYERS = 20
 MAMBA_PEAK_GB = 72
-LAUNCHER_TRAIN_STEPS = 8
+LAUNCHER_TRAIN_STEPS = 4
+# jamba-1.5-large-398b (797 GB in bf16) at full width cut to JAMBA_LAYERS
+# of its 72 layers, unstacked as remainder/r0..r4: the smallest cut that
+# holds each layer kind, (mamba, mlp) r0, (mamba, moe) r1 and (attn, mlp)
+# r4 (48.09 GB); compare_paths on its first JAMBA_PATHS_LAYERS layers (r0,
+# r1 with the embedding and the head: 24.4 GB, 48.7 GB in fp32) with r2 to
+# r4 freed first
+JAMBA_ARCH = "jamba-1.5-large-398b"
+JAMBA_LAYERS = 5
+JAMBA_PATHS_LAYERS = 2
 # the row log-sum-exp, fp32 in both versions (the wgmma route's ex2.approx
 # within 2^-22 a term)
 LSE_TOL = dict(rtol=1e-3, atol=1e-3)
@@ -435,10 +474,10 @@ LSE_TOL = dict(rtol=1e-3, atol=1e-3)
 BWD_TOL = dict(rtol=2e-2, atol_row=2e-2, atol_rel=1e-4)
 # loss and grad norm of one reduced train step, card against CPU, relative
 REDUCED_TRAIN_TOL = 2e-2
-# the reduced non-Mamba configs reduced_vs_cpu covers: one train step each
+# the reduced configs reduced_vs_cpu covers: one train step each
 TRAIN_REDUCED = ("gemma3-1b", MOE_ARCH, "granite-3-2b", "chatglm3-6b",
                  "granite-20b", "mixtral-8x7b", VLM_ARCH, ENCDEC_ARCH,
-                 MAMBA_ARCH)
+                 MAMBA_ARCH, JAMBA_ARCH)
 # the backward kernel's cases and the route each takes: granite-3-2b's
 # microbatch (32:8, D 64, causal), gemma3-1b's local layers (4:1, D 256,
 # window 512), the VLM's cross-attention (32:8, D 128, S 1024 against T
@@ -511,14 +550,14 @@ def smi() -> str:
         check=True, capture_output=True, text=True, timeout=60).stdout.strip()
 
 
-def time_ms(fn, arg_sets, reps: int = 10) -> float:
+def time_ms(fn, arg_sets, reps: int = 10, warmup: int = 3) -> float:
     """Median ms of one call of ``fn``, cycling through ``arg_sets``. The
     calls are captured once in a CUDA graph and the graph is replayed, so
     the time is the device's, not the host's launch overhead."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):      # warm-up off the capture
-        for args in arg_sets[:3]:
+        for args in arg_sets[:warmup]:
             fn(*args)
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
@@ -539,6 +578,25 @@ def time_ms(fn, arg_sets, reps: int = 10) -> float:
     del graph
     torch.cuda.empty_cache()
     return statistics.median(times)
+
+
+# what timing each plain version once costs, and at least what it saves
+# against three warm-up calls and ten replays (each call no shorter than
+# its measured device time)
+PLAIN_TIMING = dict(cases=0, seconds=0.0, saved_s=0.0)
+
+
+def time_plain_ms(fn, arg_sets) -> float:
+    """``time_ms`` of a plain version: one warm-up call and one timed
+    replay (a plain version's time is no yardstick); counted in
+    PLAIN_TIMING."""
+    t0 = time.perf_counter()
+    ms = time_ms(fn, arg_sets, reps=1, warmup=1)
+    n = len(arg_sets)
+    PLAIN_TIMING["cases"] += 1
+    PLAIN_TIMING["seconds"] += time.perf_counter() - t0
+    PLAIN_TIMING["saved_s"] += (min(3, n) - 1 + 9 * n) * ms / 1e3
+    return ms
 
 
 def bound_ms(nbytes: float, flops: float, dtype, exps: float = 0.0
@@ -649,7 +707,7 @@ def timed_calls(kernel, plain, library=None, arg_sets=((),)) -> dict:
     ms_cached = time_ms(kernel, arg_sets)
     free_memory()
     return dict(ms_cached=ms_cached, ms=time_ms(kernel, arg_sets),
-                plain_ms=time_ms(plain, arg_sets),
+                plain_ms=time_plain_ms(plain, arg_sets),
                 library_ms=None if library is None else time_ms(library, arg_sets))
 
 
@@ -891,25 +949,37 @@ def matmul_case(M, K, N, bt, dtype, tag, want_route, misalign=False):
 
 
 def projections(cfg) -> list[tuple[str, int, int, int]]:
-    """(tag, K, N, calls per layer) of every matmul of one layer. A MoE
-    layer's expert products (tags in EXPERT_TAGS) run over an expert's
-    capacity rows, not over the tokens (``moe_case``)."""
+    """(tag, K, N, calls) of every matmul shape of one pass over ``cfg``'s
+    layers, the calls summed over the layers of each kind: a Mamba layer's
+    four projections, a self-attention layer's four, then each FFN's. A
+    MoE layer's expert products (tags in EXPERT_TAGS) run over an
+    expert's capacity rows, not over the tokens (``moe_case``)."""
     d = cfg.d_model
-    if cfg.attention_free:
+    mixers = collections.Counter(m for m, _ in cfg.layer_kinds())
+    ffns = collections.Counter(f for _, f in cfg.layer_kinds())
+    n_mamba, n_attn = mixers["mamba"], cfg.n_layers - mixers["mamba"]
+    rows = []
+    if n_mamba:
         di, dtr = cfg.d_inner, cfg.resolved_dt_rank
-        return [("in_proj", d, 2 * di, 1),
-                ("x_proj", di, dtr + 2 * cfg.ssm_state, 1),
-                ("dt_proj", dtr, di, 1), ("out_proj", di, d, 1)]
+        rows += [("in_proj", d, 2 * di, n_mamba),
+                 ("x_proj", di, dtr + 2 * cfg.ssm_state, n_mamba),
+                 ("dt_proj", dtr, di, n_mamba), ("out_proj", di, d, n_mamba)]
     f, hd = cfg.d_ff, cfg.resolved_head_dim
     nq, nkv = cfg.n_heads * hd, cfg.n_kv_heads * hd
-    attn = [("wq", d, nq, 1), ("wk,wv", d, nkv, 2)]
-    if cfg.n_experts:
-        e = cfg.n_experts
-        return attn + [("router", d, e, 1),
-                       ("experts wi_gate,wi_up", d, f, 2 * e),
-                       ("attn wo", nq, d, 1), ("experts wo", f, d, e)]
-    mlp_in = ("wi_gate,wi_up", d, f, 2) if cfg.mlp_gated else ("wi_up", d, f, 1)
-    return attn + [mlp_in, ("attn wo", nq, d, 1), ("mlp wo", f, d, 1)]
+    if n_attn:
+        rows += [("wq", d, nq, n_attn), ("wk,wv", d, nkv, 2 * n_attn)]
+    if ffns["moe"]:
+        n, e = ffns["moe"], cfg.n_experts
+        rows += [("router", d, e, n), ("experts wi_gate,wi_up", d, f, 2 * e * n)]
+    if n_attn:
+        rows.append(("attn wo", nq, d, n_attn))
+    if ffns["moe"]:
+        rows.append(("experts wo", f, d, cfg.n_experts * ffns["moe"]))
+    if ffns["mlp"]:
+        n = ffns["mlp"]
+        rows += [("wi_gate,wi_up", d, f, 2 * n) if cfg.mlp_gated
+                 else ("wi_up", d, f, n), ("mlp wo", f, d, n)]
+    return rows
 
 
 EXPERT_TAGS = ("experts wi_gate,wi_up", "experts wo")
@@ -919,7 +989,7 @@ def matmul_phase(cfg, phase_names=("decode", "prefill")):
     """Every matmul shape of ``cfg``'s serving path outside MoE experts,
     weighted by its calls per decode token and per prefill; the LM head
     runs on the last position only, in prefill as in decode. MoE layers
-    add ``moe_case``'s row at the phase's capacity, weighted by the
+    add ``moe_case``'s row at the phase's capacity, weighted by the MoE
     layers."""
     phases = {name: [] for name in phase_names}
     rows = []
@@ -927,16 +997,17 @@ def matmul_phase(cfg, phase_names=("decode", "prefill")):
                             ("prefill", BATCH * PROMPT, "wgmma")):
         if phase not in phases:
             continue
-        for tag, K, N, per in projections(cfg):
+        for tag, K, N, calls in projections(cfg):
             if tag in EXPERT_TAGS:
                 continue
             r = matmul_case(M, K, N, False, torch.bfloat16, tag, route)
             rows.append(r)
-            phases[phase].append((r, per * cfg.n_layers))
-        if cfg.n_experts:
+            phases[phase].append((r, calls))
+        n_moe = sum(1 for _, f in cfg.layer_kinds() if f == "moe")
+        if n_moe:
             r = moe_case(cfg, M)
             rows.append(r)
-            phases[phase].append((r, cfg.n_layers))
+            phases[phase].append((r, n_moe))
         r = matmul_case(BATCH, cfg.d_model, cfg.padded_vocab,
                         cfg.tie_embeddings, torch.bfloat16, "lm head", "decode")
         rows.append(r)
@@ -1084,7 +1155,8 @@ def flash_case(B, H, KV, S, T, D, causal, window, tag, want_route,
         raise AssertionError(f"{name}: two calls on the same inputs differ")
     del got, again, want
     ms = time_ms(lambda: kfa.flash_attention(q, k, v, causal, window, scale), [()])
-    plain = time_ms(lambda: ref.flash_attention_ref(q, k, v, causal, window, scale), [()])
+    plain = time_plain_ms(
+        lambda: ref.flash_attention_ref(q, k, v, causal, window, scale), [()])
     mask = ref.attention_mask(S, T, causal, window, "cuda")
     kr = k.repeat_interleave(H // KV, dim=1).contiguous()
     vr = v.repeat_interleave(H // KV, dim=1).contiguous()
@@ -1198,7 +1270,7 @@ def scan_case(Bt, S, D, N, x_dtype, tag, model_like=False):
     y_abs, h_abs = y_want.float().abs(), h_want.abs()
     del y2, h2
     ms = time_ms(lambda: kscan.mamba_scan(*args), [()])
-    plain = time_ms(lambda: ref.mamba_scan_ref(*args), [()])
+    plain = time_plain_ms(lambda: ref.mamba_scan_ref(*args), [()])
     es = x.element_size()
     nbytes = (Bt * S * D * (4 + 2 * es) + 2 * Bt * S * N * 4 + D * N * 4
               + Bt * D * N * 4)
@@ -1368,13 +1440,13 @@ def scan_bwd_case(Bt, S, D, N, x_dtype, tag, model_like=False, dh=False,
     del got, again, want, truth
     free_memory()
     ms = time_ms(lambda: kscan.mamba_scan_bwd(*args), [()])
-    plain = time_ms(lambda: ref.mamba_scan_bwd_ref(*fwd, dy, dh_last), [()],
-                    reps=3)
+    plain = time_plain_ms(lambda: ref.mamba_scan_bwd_ref(*fwd, dy, dh_last),
+                          [()])
     # the forward as training runs it (chunk states), as serving runs it,
     # and its plain version
     fwd_ms = time_ms(lambda: kscan.mamba_scan(*fwd, chunk_states=True), [()])
     serve_ms = time_ms(lambda: kscan.mamba_scan(*fwd), [()])
-    fwd_plain = time_ms(lambda: ref.mamba_scan_ref(*fwd), [()], reps=3)
+    fwd_plain = time_plain_ms(lambda: ref.mamba_scan_ref(*fwd), [()])
     if split:   # the call's device time by launch
         split = scan_bwd_launch_ms(lambda: kscan.mamba_scan_bwd(*args), ms,
                                    p.pre_grid > 0, name)
@@ -1580,14 +1652,16 @@ def scan_bwd_phase(split: bool = False) -> dict:
 # ------------------------------------------------------------------- serve
 
 def counters(cfg) -> dict:
-    """The launch-counting kernel modules that ``cfg``'s main path runs."""
+    """The launch-counting kernel modules that ``cfg``'s main path runs:
+    the matmul kernel, the scan for Mamba layers, flash for the others."""
     from repro_torch.kernels import flash_attention as kfa
     from repro_torch.kernels import mamba_scan as kscan
     from repro_torch.kernels import matmul as kmm
 
-    if cfg.attention_free:
-        return {"matmul": kmm, "mamba_scan": kscan}
-    return {"matmul": kmm, "flash_attention": kfa}
+    mixers = {m for m, _ in cfg.layer_kinds()}
+    return {"matmul": kmm,
+            **({"flash_attention": kfa} if mixers - {"mamba"} else {}),
+            **({"mamba_scan": kscan} if "mamba" in mixers else {})}
 
 
 def serve_phase(cfg, repeats: int = PREFILL_REPEATS, profile: bool = True,
@@ -1595,9 +1669,12 @@ def serve_phase(cfg, repeats: int = PREFILL_REPEATS, profile: bool = True,
     """Serve ``cfg`` at full width (see the module docstring). The lighter
     phases of the later archs pass fewer prefill ``repeats``, skip the
     device profile or the SVM phase, and run ``compare_paths`` on the
-    first ``paths_layers`` layers of the served params. A VLM or an
+    first ``paths_layers`` layers of the served params (the other layers
+    freed first when no SVM phase reads them later). A VLM or an
     encoder-decoder takes the launcher's context (``serve.context``), and
-    its launches are checked against CTX_COUNTS."""
+    its launches are checked against CTX_COUNTS. A config whose Mamba
+    layers carry an FFN runs the check on a copy whose Mamba mixers take
+    LOUD_FULL (``loud_copy``), after ``check_layers_live``."""
     from repro_torch.bridge import init_params, leaf_sizes, leaves
     from repro_torch.launch import serve
 
@@ -1609,6 +1686,7 @@ def serve_phase(cfg, repeats: int = PREFILL_REPEATS, profile: bool = True,
     ctx = serve.context(cfg, BATCH, "cuda")
     torch.cuda.synchronize()
     weight_bytes = sum(n for _, n in leaf_sizes(params))
+    n_params = sum(x.numel() for x in dict(leaves(params)).values())
     init_peak = torch.cuda.max_memory_allocated()
     sums = param_sums(params)
     print(f"serve {cfg.name}: init {weight_bytes / 1e9:.3f} GB of params in "
@@ -1663,7 +1741,8 @@ def serve_phase(cfg, repeats: int = PREFILL_REPEATS, profile: bool = True,
               f"(repeated: median {statistics.median(pre_ms_again):.2f}, "
               f"{min(pre_ms_again):.2f} to {max(pre_ms_again):.2f}); "
               f"decoded {DECODE} tokens in {dec_ms:.2f} ms ({tok_s:.1f} tok/s, "
-              f"{dec_ms / DECODE:.3f} ms/token); launches "
+              f"{dec_ms / DECODE:.3f} ms/token; weight bound "
+              f"{weight_bytes / HBM_BYTES_S * 1e3:.3f} ms/token); launches "
               + ", ".join(f"{k} {counts[k]} (prefill {pre_counts[k]})"
                           for k in counts), flush=True)
         print(f"serve {cfg.name}: matmul routes, prefill {pre_routes}; "
@@ -1695,14 +1774,27 @@ def serve_phase(cfg, repeats: int = PREFILL_REPEATS, profile: bool = True,
 
         spec = served_spec(cfg, params)
         check_params_unchanged(cfg.name, params, sums, "while serving")
-        gate_live = None
+        serve_peak = torch.cuda.max_memory_allocated()
+        gate_live = layers_live = None
         if paths_layers is None:
             paths = compare_paths(cfg, params, toks)
         elif ctx is None:
+            cut_cfg, cut = depth_cut(cfg, params, paths_layers)
+            if not svm:      # nothing reads the other layers again
+                params = cut
+                free_memory()
+            loud = mamba_ffn(cfg)
             print(f"paths {cfg.name}: compare_paths on the first "
                   f"{paths_layers} of {cfg.n_layers} layers (full width; the "
-                  f"fp32 copy of all of them would not fit)", flush=True)
-            paths = compare_paths(*depth_cut(cfg, params, paths_layers), toks)
+                  f"fp32 copy of all of them would not fit"
+                  + (f"; the others freed first" if not svm else "")
+                  + (f"; every Mamba mixer at LOUD_FULL {LOUD_FULL}, dt_bias "
+                     f"0, on a copy" if loud else "") + ")", flush=True)
+            if loud:
+                cut = loud_copy(cut_cfg, cut, LOUD_FULL)
+                layers_live = check_layers_live(cut_cfg, cut, toks)
+            paths = compare_paths(cut_cfg, cut, toks)
+            del cut
         else:
             cut_cfg, cut = depth_cut(cfg, params, paths_layers)
             gate_live = check_gate_live(cut_cfg, cut, toks, ctx)
@@ -1717,9 +1809,10 @@ def serve_phase(cfg, repeats: int = PREFILL_REPEATS, profile: bool = True,
         check_params_unchanged(cfg.name, params, sums, "in compare_paths")
         pre_ms_p = paths.pop("plain_prefill_ms")
         peak = torch.cuda.max_memory_allocated()
+        print(f"serve {cfg.name}: peak memory serving {serve_peak / 1e9:.3f} "
+              f"GB, with compare_paths {peak / 1e9:.3f} GB", flush=True)
         free_memory()
         svm = svm_phase(cfg, params) if svm else None
-        n_params = sum(x.numel() for x in dict(leaves(params)).values())
         del params
         free_memory()
         reduced = reduced_vs_cpu(cfg.name)
@@ -1730,13 +1823,14 @@ def serve_phase(cfg, repeats: int = PREFILL_REPEATS, profile: bool = True,
                 prefill_ms_repeated=pre_ms_again,
                 matmul_routes_prefill=pre_routes, matmul_routes_decode=routes,
                 flash_routes_prefill=fa_routes, flash_routes_decode=fa_dec,
-                gate_live=gate_live,
+                gate_live=gate_live, layers_live=layers_live,
                 decode_ms=dec_ms, tok_s=tok_s,
                 decode_ms_per_token=dec_ms / DECODE,
                 decode_weight_bound_ms_per_token=weight_bytes / HBM_BYTES_S * 1e3,
                 profile_prefill=prof_pre, profile_decode_4_tokens=prof_dec,
                 plain_prefill_ms=pre_ms_p, launches=counts,
                 prefill_launches=pre_counts, peak_memory_bytes=peak,
+                serve_peak_memory_bytes=serve_peak,
                 paths_vs_fp32=paths, reduced_vs_cpu=reduced,
                 continuation=seq[0].tolist(), param_sums=sums)
 
@@ -1759,20 +1853,102 @@ def check_params_unchanged(name: str, params, sums: dict, where: str) -> None:
 
 
 def depth_cut(cfg, params, n_layers: int):
-    """``cfg`` cut to its first ``n_layers`` layers (whole periods, no
-    remainder) and the served params of those layers, as views of the
-    stacked tensors."""
+    """``cfg`` cut to its first ``n_layers`` layers and the served params
+    of those layers: whole periods (views of the stacked tensors) of a
+    config with no remainder, or the first ``remainder/r<i>`` layers of an
+    unstacked one (no periods)."""
     import dataclasses
 
     from repro_torch.bridge import tree_map
 
     per = len(cfg.layer_pattern)
-    if n_layers % per or cfg.n_remainder or n_layers > cfg.n_layers:
+    if n_layers > cfg.n_layers or (cfg.n_periods and (
+            n_layers % per or cfg.n_remainder)):
         raise ValueError(f"{cfg.name}: cannot cut {cfg.n_layers} layers of "
                          f"period {per} to {n_layers}")
     cut = dataclasses.replace(cfg, n_layers=n_layers)
+    if not cfg.n_periods:
+        return cut, dict(params, remainder={
+            f"r{i}": params["remainder"][f"r{i}"] for i in range(n_layers)})
     return cut, dict(params, periods=tree_map(lambda x: x[:n_layers // per],
                                               params["periods"]))
+
+
+def mamba_ffn(cfg) -> bool:
+    """Whether ``cfg`` has Mamba layers followed by an FFN (jamba's)."""
+    return any(m == "mamba" and f != "none" for m, f in cfg.layer_kinds())
+
+
+def loud_copy(cfg, params, gains: dict) -> dict:
+    """``params`` with ``gains`` on the leaves of every Mamba mixer and
+    its dt_bias at 0: new tensors for those leaves, the rest shared."""
+    pat = cfg.layer_pattern
+
+    def loud(layer):
+        mixer = dict(layer["mixer"])
+        for name, g in gains.items():
+            mixer[name] = (mixer[name].float() * g).to(mixer[name].dtype)
+        mixer["dt_bias"] = torch.zeros_like(mixer["dt_bias"])
+        return dict(layer, mixer=mixer)
+
+    out = dict(params)
+    if cfg.n_periods:
+        out["periods"] = {k: loud(v) if pat[int(k[1:])] == "mamba" else v
+                          for k, v in params["periods"].items()}
+    base = cfg.n_periods * len(pat)
+    if cfg.n_remainder:
+        out["remainder"] = {
+            k: loud(v) if pat[(base + int(k[1:])) % len(pat)] == "mamba" else v
+            for k, v in params["remainder"].items()}
+    return out
+
+
+def check_layers_live(cfg, params, toks) -> dict:
+    """The kernel path's prefill logits of ``params`` against the same
+    with the scan's y zeroed (the D skip kept), with every MLP's output
+    zeroed, and with every MoE's: each must differ beyond MODEL_TOL, so
+    that ``compare_paths`` on these params sees the scan and both FFNs
+    (a part far below the residual's bf16 resolution would change no
+    logit). Returns each one's relative L2 distance."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as tm
+
+    def logits():
+        return serve.run_prefill(cfg, params, toks, None)[1][:, -1]
+
+    def zero_y(scan):
+        def broken(*args, **kw):
+            y, h = scan(*args, **kw)
+            return torch.zeros_like(y), h
+        return broken
+
+    want = logits()
+    out = {}
+    faults = {"scan y": (ops, "mamba_scan", zero_y),
+              "mlp": (tm, "mlp_apply",
+                      lambda f: lambda p, x, *a, **k: torch.zeros_like(x)),
+              "moe": (tm.moe_lib, "moe_apply",
+                      lambda f: lambda p, c, x, **k: (
+                          torch.zeros_like(x),
+                          x.new_zeros((), dtype=torch.float32)))}
+    for name, (mod, attr, broken) in faults.items():
+        real = getattr(mod, attr)
+        setattr(mod, attr, broken(real))
+        try:
+            got = logits()
+        finally:
+            setattr(mod, attr, real)
+        if within(got, want, MODEL_TOL):
+            raise AssertionError(f"{cfg.name}: the prefill logits with the "
+                                 f"{name} output zeroed are within "
+                                 f"{MODEL_TOL} of the whole model's")
+        out[name] = rel_l2(got, want)
+    print(f"paths {cfg.name}: prefill logits relative L2 to the whole "
+          f"model's with the output zeroed of: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in out.items())
+          + f" (each beyond {MODEL_TOL})", flush=True)
+    return out
 
 
 def new_archs_phase(t_run: float) -> dict:
@@ -1803,6 +1979,13 @@ def new_archs_phase(t_run: float) -> dict:
                                   model_layout=True)}
     mm_moe, phases_moe = matmul_phase(cfgs[MOE_ARCH])
     mm_20b, phases_20b = matmul_phase(g20, ("decode",))
+    # mixtral-8x7b's shapes over all 32 layers: what the streamed run
+    # (phase 1'(a)) launches, timed resident
+    t0 = time.perf_counter()
+    mm_mix, phases_mix = matmul_phase(get_config("mixtral-8x7b"))
+    mix_s = time.perf_counter() - t0
+    print(f"matmul mixtral-8x7b: its 32 layers' shapes in {mix_s:.1f} s",
+          flush=True)
     free_memory()
     served, launched = {}, None
     for name in NEW_ARCHS:
@@ -1825,7 +2008,46 @@ def new_archs_phase(t_run: float) -> dict:
               flush=True)
     return dict(flash=flash, matmul_moe=mm_moe, matmul_moe_phases=phases_moe,
                 matmul_granite_20b=mm_20b, matmul_granite_20b_phases=phases_20b,
-                served=served, launcher=launched)
+                matmul_mixtral=mm_mix, matmul_mixtral_phases=phases_mix,
+                matmul_mixtral_seconds=mix_s, served=served, launcher=launched)
+
+
+def jamba_phase(t_run: float) -> dict:
+    """jamba-1.5-large-398b at full width cut to JAMBA_LAYERS layers (see
+    the module docstring): flash attention (64:8, D 128, global causal),
+    the scan at (4, 1024, 16384, 16) and the matmul kernel at every shape
+    of its prefill and token (the 16 experts' products by ``moe_case``),
+    each against its plain version; then its serve phase."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    t0 = time.perf_counter()
+    full = get_config(JAMBA_ARCH)
+    cfg = dataclasses.replace(full, n_layers=JAMBA_LAYERS)
+    flash = flash_case(BATCH, cfg.n_heads, cfg.n_kv_heads, PROMPT, PROMPT,
+                       cfg.resolved_head_dim, True, 0, "d128 64:8", "wgmma",
+                       model_layout=True)
+    scan = scan_case(BATCH, PROMPT, cfg.d_inner, cfg.ssm_state,
+                     torch.bfloat16, "jamba", model_like=True)
+    free_memory()
+    mm_rows, mm_phases = matmul_phase(cfg)
+    free_memory()
+    kernels_s = time.perf_counter() - t0
+    print(f"serve {JAMBA_ARCH}: full width, depth cut to {cfg.n_layers} of "
+          f"{full.n_layers} layers, unstacked as remainder/r0..r"
+          f"{cfg.n_layers - 1}: {cfg.layer_kinds()}", flush=True)
+    served = serve_phase(cfg, repeats=NEW_PREFILL_REPEATS, svm=False,
+                         paths_layers=JAMBA_PATHS_LAYERS)
+    served["depth_cut"] = dict(n_layers=cfg.n_layers, of=full.n_layers)
+    served.pop("spec")
+    free_memory()
+    seconds = time.perf_counter() - t0
+    print(f"{JAMBA_ARCH} phase done in {seconds:.1f} s (its kernel cases "
+          f"{kernels_s:.1f} s), at {time.perf_counter() - t_run:.1f} s",
+          flush=True)
+    return dict(flash=flash, scan=scan, matmul=mm_rows, matmul_phases=mm_phases,
+                served=served, seconds=seconds, kernels_seconds=kernels_s)
 
 
 # ------------------------------------------- VLM and encoder-decoder
@@ -2372,7 +2594,8 @@ def check_scan_launches(cfg, prefill: int, total: int) -> None:
     """One scan launch a Mamba layer in prefill, none in decode (the
     decode recurrence is plain PyTorch)."""
     got = {"prefill": prefill, "decode": total - prefill}
-    want = {"prefill": cfg.n_layers, "decode": 0}
+    want = {"prefill": sum(1 for m, _ in cfg.layer_kinds() if m == "mamba"),
+            "decode": 0}
     if got != want:
         raise AssertionError(f"{cfg.name}: mamba_scan launches {got}, "
                              f"expected {want}")
@@ -2383,8 +2606,9 @@ def check_routes(cfg, prefill: dict, decode: dict, flash: dict | None,
     """Every prefill projection took the wgmma route and the LM head (the
     last position only, M = BATCH) the decode route; every matmul of the
     ``tokens`` decode tokens took the decode route; every prefill
-    attention call (one a layer) took the flash kernel's wgmma route."""
-    proj = sum(per for *_, per in projections(cfg)) * cfg.n_layers
+    attention call (one a self-attention layer) took the flash kernel's
+    wgmma route."""
+    proj = sum(calls for *_, calls in projections(cfg))
     want_pre = dict.fromkeys(prefill, 0) | {"wgmma": proj, "decode": 1}
     want_dec = dict.fromkeys(decode, 0) | {"decode": (proj + 1) * tokens}
     if prefill != want_pre or decode != want_dec:
@@ -2392,7 +2616,8 @@ def check_routes(cfg, prefill: dict, decode: dict, flash: dict | None,
                              f"decode {decode}; expected {want_pre} and "
                              f"{want_dec}")
     if flash is not None:
-        want_fa = dict.fromkeys(flash, 0) | {"wgmma": cfg.n_layers}
+        n_attn = sum(1 for m, _ in cfg.layer_kinds() if m != "mamba")
+        want_fa = dict.fromkeys(flash, 0) | {"wgmma": n_attn}
         if flash != want_fa:
             raise AssertionError(f"{cfg.name}: flash_attention routes prefill "
                                  f"{flash}; expected {want_fa}")
@@ -2583,8 +2808,10 @@ def reduced_vs_cpu(name: str) -> dict:
     ``name`` served on the card through the kernels against the plain path
     on the CPU, same params and prompts; prefill logits and 8 decode steps
     past prompt_len, teacher-forced on the CPU's tokens, elementwise
-    within MODEL_TOL. Mamba mixers get the LOUD_MODEL gains: at their init
-    they leave the logits unchanged within any tolerance. MoE layers
+    within MODEL_TOL. Every Mamba mixer gets the LOUD_MODEL gains: at its
+    init it leaves the logits unchanged within any tolerance, so the CPU's
+    prefill logits with the gains must differ from init's beyond
+    MODEL_TOL. MoE layers
     replay the CPU's routing (``RouteTape``); the error of the card's own
     routing is printed beside it. A VLM or an encoder-decoder takes the
     launcher's context, its cross-attention gates at REDUCED_GATE, and its
@@ -2598,16 +2825,21 @@ def reduced_vs_cpu(name: str) -> dict:
 
     cfg = get_reduced(name)
     p_cpu = init_params(cfg, seed=0, device="cpu")
-    if cfg.attention_free:
-        mixer = p_cpu["periods"]["l0"]["mixer"]
-        for leaf, gain in LOUD_MODEL.items():
-            mixer[leaf].mul_(gain)
-        mixer["dt_bias"].zero_()
+    toks = serve.prompts(cfg, 2, 24, "cpu")
+    loud_diff = None
+    if any(m == "mamba" for m, _ in cfg.layer_kinds()):
+        quiet = serve.run_prefill(cfg, p_cpu, toks)[1]
+        p_cpu = loud_copy(cfg, p_cpu, LOUD_MODEL)
+        loud = serve.run_prefill(cfg, p_cpu, toks)[1]
+        if within(loud, quiet, MODEL_TOL):
+            raise AssertionError(f"reduced {name}: the prefill logits with "
+                                 f"LOUD_MODEL are within {MODEL_TOL} of "
+                                 f"init's")
+        loud_diff = (loud.float() - quiet.float()).abs().max().item()
     ctx = serve.context(cfg, 2, "cpu")
     if ctx is not None:
         p_cpu = with_gates(p_cpu, REDUCED_GATE)
     p_gpu = tree_map(lambda x: x.to("cuda"), p_cpu)
-    toks = serve.prompts(cfg, 2, 24, "cpu")
 
     def run(params, device, fed=None):
         """Prefill logits and 8 decode steps' logits; decode is fed
@@ -2633,10 +2865,14 @@ def reduced_vs_cpu(name: str) -> dict:
         got, _ = run(p_gpu, "cuda", fed)
     errs = [check_close("reduced prefill" if i == 0 else "reduced decode",
                         g, w, MODEL_TOL) for i, (g, w) in enumerate(zip(got, want))]
-    out = dict(prefill_max_abs_err=errs[0], decode_max_abs_err=max(errs[1:]))
+    out = dict(prefill_max_abs_err=errs[0], decode_max_abs_err=max(errs[1:]),
+               loud_vs_init_max_abs_diff=loud_diff)
     line = (f"reduced {name}, card kernels vs CPU plain: max |err| prefill "
             f"{errs[0]:.3e}, 8 decode steps {max(errs[1:]):.3e} "
             f"(tolerance {MODEL_TOL})")
+    if loud_diff is not None:
+        line += (f"; Mamba mixers at LOUD_MODEL, their CPU prefill logits "
+                 f"{loud_diff:.3e} from init's")
     if ctx is not None:
         off = run(with_gates(p_gpu, 0.0), "cuda", fed)[0][0]
         if within(got[0], off, MODEL_TOL):
@@ -2810,7 +3046,7 @@ def flash_bwd_case(B, H, KV, S, T, D, causal, window, tag, want_route,
     del got, again, want, truth
     free_memory()
     ms = time_ms(lambda: kfa.flash_attention_bwd(*args), [()])
-    plain = time_ms(lambda: ref.flash_attention_bwd_ref(*args), [()])
+    plain = time_plain_ms(lambda: ref.flash_attention_bwd_ref(*args), [()])
     free_memory()
     lib = sdpa_bwd_ms(q, k, v, do, causal, window, 1.0)
     if split:   # the call's device time by launch: Delta, then dK/dV and
@@ -2873,8 +3109,8 @@ def train_matmul_phase(cfg, mb_tokens: int) -> list[dict]:
 
     rows = []
     chunk = mb_tokens // TRAIN_SEQ * min(CE_CHUNK, TRAIN_SEQ)
-    shapes = [(tag, mb_tokens, K, N, per * cfg.n_layers)
-              for tag, K, N, per in projections(cfg)]
+    shapes = [(tag, mb_tokens, K, N, calls)
+              for tag, K, N, calls in projections(cfg)]
     shapes.append(("lm head chunk", chunk, cfg.d_model, cfg.padded_vocab,
                    math.ceil(TRAIN_SEQ / CE_CHUNK)))
     for tag, M, K, N, calls in shapes:
@@ -2900,8 +3136,8 @@ def train_matmul_phase(cfg, mb_tokens: int) -> list[dict]:
                              x.shape[1], bt, x.dtype,
                              (x.data_ptr(), y.data_ptr(), 0))
             row[name] = dict(route=want, ms=time_ms(lambda: mm(x, y, bt), [()]),
-                             plain_ms=time_ms(lambda: ref.matmul_ref(x, y, bt),
-                                              [()]),
+                             plain_ms=time_plain_ms(
+                                 lambda: ref.matmul_ref(x, y, bt), [()]),
                              library_ms=time_ms(lib, [()]))
         row["transpose_ms"] = sum(time_ms(lambda x=x: t(x), [()]) for x in trans)
         nbytes = 2 * (M * K + K * N + M * N)
@@ -2930,9 +3166,8 @@ def train_counts(cfg, microbatches: int) -> dict:
     route ("cuda")."""
     from repro_torch.launch.steps import CE_CHUNK
 
-    per_layer = sum(n for _, _, _, n in projections(cfg))
     chunks = math.ceil(TRAIN_SEQ / CE_CHUNK)
-    fwd = cfg.n_layers * per_layer + chunks
+    fwd = sum(n for _, _, _, n in projections(cfg)) + chunks
     tied = 2 * chunks if cfg.tie_embeddings else 0
     mixer = "mamba_scan" if cfg.attention_free else "flash_attention"
     route = "cuda" if cfg.attention_free else "wgmma"
@@ -3021,7 +3256,9 @@ def train_paths(cfg, params, toks, labs) -> dict:
 
 
 def reduced_train_vs_cpu(name: str) -> dict:
-    """Phase (c): one train step (AdamW, microbatches 1, batch 2 x 64) of
+    """Phase (c): one train step (the optimizer of the arch's
+    TrainSettings: AdamW, adafactor for jamba; microbatches 1, batch 2 x
+    64) of
     the reduced config of ``name`` on the card through the kernels against
     the plain path on the CPU, same params and batch; loss and grad norm
     within REDUCED_TRAIN_TOL relative. A VLM or an encoder-decoder takes
@@ -3032,16 +3269,20 @@ def reduced_train_vs_cpu(name: str) -> dict:
     from repro_torch.configs import get_reduced
     from repro_torch.data import SyntheticLM
     from repro_torch.launch import serve
+    from repro_torch.launch.settings import settings_for
     from repro_torch.launch.steps import make_train_step
-    from repro_torch.optim import OptConfig, adamw_init
+    from repro_torch.optim import OptConfig, make_optimizer
 
+    t0 = time.perf_counter()
     cfg = get_reduced(name)
     p_cpu = init_params(cfg, seed=0, device="cpu")
     ctx = serve.context(cfg, 2, "cpu")
     if ctx is not None:
         p_cpu = with_gates(p_cpu, REDUCED_GATE)
     b = SyntheticLM(vocab=cfg.vocab, seed=0).batch(0, 0, 2, 64)
-    opt_cfg = OptConfig(warmup_steps=1, total_steps=LAUNCHER_TRAIN_STEPS)
+    opt_cfg = OptConfig(kind=settings_for(name).optimizer, warmup_steps=1,
+                        total_steps=LAUNCHER_TRAIN_STEPS)
+    opt_init = make_optimizer(opt_cfg)[0]
     step = make_train_step(cfg, opt_cfg, microbatches=1)
     out = {}
     tape = RouteTape() if cfg.n_experts else None
@@ -3054,12 +3295,13 @@ def reduced_train_vs_cpu(name: str) -> dict:
                      "labels": torch.from_numpy(b["labels"]).to(dev)}
             if ctx is not None:
                 batch["ctx"] = ctx.to(dev)
-            _, _, m = step(p, adamw_init(p), batch)
+            _, _, m = step(p, opt_init(p), batch)
             out[dev] = dict(loss=float(m["loss"]),
                             grad_norm=float(m["grad_norm"]))
     rel = {k: abs(out["cuda"][k] - out["cpu"][k]) / abs(out["cpu"][k])
            for k in ("loss", "grad_norm")}
-    print(f"reduced train {name}, card kernels vs CPU plain: loss "
+    print(f"reduced train {name} ({opt_cfg.kind}), card kernels vs CPU "
+          f"plain: loss "
           f"{out['cuda']['loss']:.6f} vs {out['cpu']['loss']:.6f}, grad norm "
           f"{out['cuda']['grad_norm']:.6f} vs {out['cpu']['grad_norm']:.6f} "
           f"(relative {rel['loss']:.2e}, {rel['grad_norm']:.2e}; tolerance "
@@ -3069,7 +3311,7 @@ def reduced_train_vs_cpu(name: str) -> dict:
         raise AssertionError(f"reduced train {name}: card {out['cuda']} and "
                              f"CPU {out['cpu']} differ beyond "
                              f"{REDUCED_TRAIN_TOL}")
-    return dict(out, rel=rel)
+    return dict(out, rel=rel, seconds=time.perf_counter() - t0)
 
 
 def train_phase(arch: str, batch: int, served_sums: dict | None = None,
@@ -3215,10 +3457,11 @@ def mamba_train_phase() -> dict:
 
 def launcher_train_phase() -> dict:
     """Phase (e): ``python -m repro_torch.launch.train --arch granite-3-2b
-    --reduced --steps 8`` into a temporary ``--ckpt``, then again: the
-    second run must resume from step 8 and end with the first run's state
-    (the launcher's ``state sha256`` line). Then ``--arch falcon-mamba-7b
-    --reduced --steps 8`` once, on CUDA."""
+    --reduced --steps 4`` into a temporary ``--ckpt``, then again: the
+    second run must resume from step 4 and end with the first run's state
+    (the launcher's ``state sha256`` line). Then ``--arch
+    jamba-1.5-large-398b --reduced --steps 4`` once, on CUDA: Mamba layers
+    through the scan's kernels, attention, MoE, and adafactor."""
     import tempfile
 
     outs = []
@@ -3246,20 +3489,20 @@ def launcher_train_phase() -> dict:
                              f"differs from the first run's: {digests}")
     print(f"train launcher: second run {resumed}, state bit-equal "
           f"(sha256 {digests[0][:16]})", flush=True)
-    with tempfile.TemporaryDirectory() as tmp:   # the Mamba arch, on CUDA
+    with tempfile.TemporaryDirectory() as tmp:   # the hybrid arch, on CUDA
         r = subprocess.run(
             [sys.executable, "-m", "repro_torch.launch.train", "--arch",
-             MAMBA_ARCH, "--reduced", "--steps", str(LAUNCHER_TRAIN_STEPS),
+             JAMBA_ARCH, "--reduced", "--steps", str(LAUNCHER_TRAIN_STEPS),
              "--ckpt", os.path.join(tmp, "ckpt")],
             capture_output=True, text=True, timeout=600, env=env, cwd=ROOT)
     print(r.stdout, end="", flush=True)
     done = f"done: {LAUNCHER_TRAIN_STEPS} steps"
-    if r.returncode or f"arch={MAMBA_ARCH}" not in r.stdout \
+    if r.returncode or f"arch={JAMBA_ARCH}" not in r.stdout \
             or "device=cuda" not in r.stdout or done not in r.stdout:
-        raise AssertionError(f"train launcher --arch {MAMBA_ARCH} exited "
+        raise AssertionError(f"train launcher --arch {JAMBA_ARCH} exited "
                              f"{r.returncode} without {done!r} on cuda:\n"
                              f"{r.stderr[-4000:]}")
-    return dict(digest=digests[0], out=outs, mamba_out=r.stdout)
+    return dict(digest=digests[0], out=outs, jamba_out=r.stdout)
 
 
 def train_phases(served_sums: dict) -> dict:
@@ -3397,19 +3640,19 @@ def host_sums(host, device) -> dict:
 def stream_flops(cfg, B: int, S: int) -> dict:
     """Each group's flops for ``run_layer_stream``, in prefill (B x S
     tokens) and in a decode token (B): 2·M·K·N of every product the
-    matmul kernel runs (``projections``; a MoE layer's experts over their
-    capacity rows, the head on the last position only) and in prefill the
-    flash kernel's 4·D of every visible (query, key) pair of a head; the
-    embed, a gather, none."""
+    matmul kernel runs (``projections``, over the layers, which are all
+    alike; a MoE layer's experts over their capacity rows, the head on the
+    last position only) and in prefill the flash kernel's 4·D of every
+    visible (query, key) pair of a head; the embed, a gather, none."""
     from repro_torch.models.moe import capacity
 
     hd = cfg.resolved_head_dim
     out = {}
     for phase, T, Sq in (("prefill", B * S, S), ("decode", B, 0)):
         layer = 0.0
-        for tag, K, N, per in projections(cfg):
+        for tag, K, N, calls in projections(cfg):
             M = capacity(cfg, T) if tag in EXPERT_TAGS else T
-            layer += 2.0 * M * K * N * per
+            layer += 2.0 * M * K * N * calls / cfg.n_layers
         w = cfg.sliding_window or Sq
         pairs = sum(min(q + 1, w) for q in range(Sq))
         layer += 4.0 * hd * pairs * B * cfg.n_heads
@@ -3718,6 +3961,7 @@ def stream_phase(card: str) -> dict:
                         for _, x in leaves(host_cut))
         s = stream_run(cut, host_cut, toks, STREAM_DECODE,
                        int(cut_bytes * SVM_FRAC), {}, "cuda")
+        check_ms = s["decode"]["ms_per_token"]
         resident = tree_map(lambda x: x.to("cuda"), host_cut)
         clock = serve._Timer(torch.device("cuda"))
         clock.start()
@@ -3756,6 +4000,7 @@ def stream_phase(card: str) -> dict:
     return dict(arch=full.name, n_layers=n, of=full.n_layers,
                 weight_bytes=total, pin_host_s=pin_s, free_host_s=free_s,
                 host_available_bytes=avail, decode_tokens=STREAM_DECODE,
+                check_decode_ms_per_token=check_ms,
                 policies={k: {f: r[f] for f in keep}
                           for k, r in runs.items()},
                 seconds=time.perf_counter() - t_phase)
@@ -3915,6 +4160,44 @@ def summarize(name, weighted, launches, source, replaces):
         else sum(r["library_ms"] * n for r, n in weighted))
 
 
+def cut_seconds(jamba: dict, new: dict, trained: dict, streamed: dict) -> dict:
+    """What jamba-1.5-large-398b's serving added to the run, and what the
+    cuts that pay for it saved, from this run's own measurements: the
+    streamed decode's tokens beyond STREAM_DECODE, up to the 8 it took
+    before, at each policy's and the layer check's measured ms a token;
+    the plain versions' warm-ups and replays beyond one each
+    (PLAIN_TIMING, a lower bound); the launcher's steps beyond
+    LAUNCHER_TRAIN_STEPS, up to 8, at its runs' measured mean step (an
+    estimate: the first step carries the run's set-up)."""
+    tokens = 8 - STREAM_DECODE
+    stream_s = tokens * (sum(p["decode"]["ms_per_token"] for p in
+                             streamed["policies"].values())
+                         + streamed["check_decode_ms_per_token"]) / 1e3
+    walls = [float(re.search(r"done: \d+ steps in ([\d.]+)s", o).group(1))
+             for o in (trained["launcher"]["out"][0],
+                       trained["launcher"]["jamba_out"])]
+    launcher_s = (8 - LAUNCHER_TRAIN_STEPS) / LAUNCHER_TRAIN_STEPS * sum(walls)
+    out = dict(added=dict(jamba_phase_s=jamba["seconds"],
+                          mixtral_shapes_s=new["matmul_mixtral_seconds"],
+                          jamba_reduced_step_s=trained["reduced"][JAMBA_ARCH][
+                              "seconds"]),
+               saved=dict(stream_decode_s=stream_s,
+                          plain_once_at_least_s=PLAIN_TIMING["saved_s"],
+                          launcher_steps_est_s=launcher_s),
+               plain_timing=dict(PLAIN_TIMING))
+    added, saved = sum(out["added"].values()), sum(out["saved"].values())
+    print(f"cut: jamba's serving added {added:.1f} s (its phase "
+          f"{jamba['seconds']:.1f}, mixtral-8x7b's 32 layers' shapes "
+          f"{new['matmul_mixtral_seconds']:.1f}, its reduced train step "
+          f"{out['added']['jamba_reduced_step_s']:.1f}); the cuts saved "
+          f"{saved:.1f} s: {tokens} streamed decode tokens {stream_s:.1f}, "
+          f"{PLAIN_TIMING['cases']} plain versions timed once (in "
+          f"{PLAIN_TIMING['seconds']:.1f} s) at least "
+          f"{PLAIN_TIMING['saved_s']:.1f}, the launcher's steps about "
+          f"{launcher_s:.1f}", flush=True)
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -3993,9 +4276,11 @@ def main(argv=None) -> int:
     ctxp = context_archs_phase(t_run)
     launched.append(ctxp.pop("launcher"))
     free_memory()
+    jamba = jamba_phase(t_run)
+    free_memory()
     served_sums = new["served"][TRAIN_ARCH]["param_sums"]
     for s in [served, served_m, *new["served"].values(),
-              *ctxp["served"].values()]:   # the init bits: not for the json
+              *ctxp["served"].values(), jamba["served"]]:   # the init bits
         del s["param_sums"]
     trained = train_phases(served_sums)
     free_memory()
@@ -4081,6 +4366,35 @@ def main(argv=None) -> int:
                       fa_rep),
             summarize(f"flash_attention@{tag}-decode", fa_dec, fa_d, fa_src,
                       fa_rep)]
+    sj = jamba["served"]
+    mm_j = jamba.pop("matmul_phases")   # (row, calls): not for the json
+    mm_jd, mm_jp = split(sj, "matmul")
+    kernels += [
+        summarize("matmul@jamba-prefill", mm_j["prefill"], mm_jp, mm_src,
+                  mm_rep),
+        summarize("matmul@jamba-decode", mm_j["decode"], mm_jd, mm_src,
+                  mm_rep),
+        summarize("flash_attention@jamba-prefill",
+                  [(jamba["flash"], sj["launches"]["flash_attention"])],
+                  sj["launches"]["flash_attention"], fa_src, fa_rep),
+        summarize("mamba_scan@jamba-prefill",
+                  [(jamba["scan"], sj["launches"]["mamba_scan"])],
+                  sj["launches"]["mamba_scan"], scan_src, scan_rep)]
+    # mixtral-8x7b streamed (phase 1'(a), naive): the kernels at its
+    # shapes over the 32 layers, timed resident; launches of the streamed
+    # prefill and its STREAM_DECODE tokens
+    mix = new.pop("matmul_mixtral_phases")
+    st_pre = streamed["policies"]["naive"]["prefill"]["counts"]
+    st_all = streamed["policies"]["naive"]["decode"]["counts"]
+    st_mm = sum(st_pre["matmul"].values())
+    kernels += [
+        summarize("matmul@mixtral-stream-prefill", mix["prefill"], st_mm,
+                  mm_src, mm_rep),
+        summarize("matmul@mixtral-stream-decode", mix["decode"],
+                  sum(st_all["matmul"].values()) - st_mm, mm_src, mm_rep),
+        summarize("flash_attention@mixtral-stream-prefill",
+                  [(new["flash"]["d128-window"], streamed["n_layers"])],
+                  sum(st_pre["flash_attention"].values()), fa_src, fa_rep)]
     bwd_rows = {r["tag"]: r for r in trained["flash_bwd"]}
     step_counts = trained["run"]["steps"][-1]["launches"]
     bwd_routes = step_counts["flash_attention_bwd"]
@@ -4106,6 +4420,7 @@ def main(argv=None) -> int:
                   "none: no TPU kernel; the reference differentiates its "
                   "chunked associative scan (src/repro/models/mamba.py:96) "
                   "through XLA")]
+    cut = cut_seconds(jamba, new, trained, streamed)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(dict(card=card, torch=torch.__version__,
@@ -4115,8 +4430,9 @@ def main(argv=None) -> int:
                        serve_mamba=served_m, paper_workloads=work,
                        kernels=kernels, link_bw=link, serving_rate=rates,
                        launcher=launched, sched=sched, new_archs=new,
-                       context_archs=ctxp, train=trained, stream=streamed,
-                       examples=examples,
+                       context_archs=ctxp, jamba=jamba, train=trained,
+                       stream=streamed,
+                       examples=examples, cut=cut,
                        seconds=time.perf_counter() - t_run), f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(smi())

@@ -19,9 +19,8 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.models.config import (ATTN, CROSS, MAMBA, MLP, MOE, NONE,
-                                      ModelConfig)
-from repro_torch.models.transformer import check_ported
+from repro_torch.models.config import (ATTN, ATTN_LOCAL, CROSS, MAMBA, MLP,
+                                      MOE, NONE, ModelConfig)
 
 Shape = tuple[int, ...]
 BF16, FP32 = torch.bfloat16, torch.float32
@@ -52,6 +51,8 @@ def _ffn_shapes(cfg: ModelConfig, ffn: str) -> dict:
         e = cfg.n_experts
         return {"router": ((d, e), BF16), "wi_gate": ((e, d, f), BF16),
                 "wi_up": ((e, d, f), BF16), "wo": ((e, f, d), BF16)}
+    if ffn != MLP:
+        raise ValueError(f"unknown ffn {ffn!r}")
     ffn_p = {"wi_up": ((d, f), BF16), "wo": ((f, d), BF16)}
     if cfg.mlp_gated:
         ffn_p["wi_gate"] = ((d, f), BF16)
@@ -61,11 +62,15 @@ def _ffn_shapes(cfg: ModelConfig, ffn: str) -> dict:
 def _layer_shapes(cfg: ModelConfig, mixer: str, ffn: str) -> dict:
     """``_init_layer``'s leaves (``repro/models/transformer.py:61-82``):
     ``norm1`` and the mixer; a cross-attention layer's scalar ``gate``;
-    ``norm2`` and the FFN unless the FFN is ``none``."""
-    check_ported(mixer, ffn)
+    ``norm2`` and the FFN (an MLP or a MoE, after any mixer) unless the
+    FFN is ``none``."""
     d = cfg.d_model
-    tree = {"norm1": ((d,), BF16),
-            "mixer": _mamba_shapes(cfg) if mixer == MAMBA else _attn_shapes(cfg)}
+    if mixer == MAMBA:
+        tree = {"norm1": ((d,), BF16), "mixer": _mamba_shapes(cfg)}
+    elif mixer in (ATTN, ATTN_LOCAL, CROSS):
+        tree = {"norm1": ((d,), BF16), "mixer": _attn_shapes(cfg)}
+    else:
+        raise ValueError(f"unknown mixer {mixer!r}")
     if mixer == CROSS:
         tree["gate"] = ((), BF16)
     if ffn != NONE:

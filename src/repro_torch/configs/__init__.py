@@ -1,5 +1,4 @@
-"""Architecture registry of the port: the ported configs, and for every
-other arch of ``repro.configs`` the ROADMAP item that will port it."""
+"""Architecture registry of the port: every arch of ``repro.configs``."""
 
 from __future__ import annotations
 
@@ -17,22 +16,13 @@ _MODULES = {
     "mixtral-8x7b": "repro_torch.configs.mixtral_8x7b",
     "llama-3.2-vision-11b": "repro_torch.configs.llama_3_2_vision_11b",
     "seamless-m4t-medium": "repro_torch.configs.seamless_m4t_medium",
-}
-
-_NOT_PORTED = {
-    "jamba-1.5-large-398b": "Queue 1 item 11 (its Mamba and MoE layers are "
-                            "ported; its (mamba, mlp) and (mamba, moe) "
-                            "layers and 797 GB need a sharded model)",
+    "jamba-1.5-large-398b": "repro_torch.configs.jamba_1_5_large_398b",
 }
 
 ARCH_IDS = tuple(_MODULES)
 
 
 def _module(name: str):
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"arch {name!r} is not ported to PyTorch yet: ROADMAP.md "
-            f"{_NOT_PORTED[name]}")
     if name not in _MODULES:
         raise ValueError(f"unknown arch {name!r}; available: {ARCH_IDS}")
     return importlib.import_module(_MODULES[name])

@@ -4,13 +4,17 @@ greedy-decode — port of ``repro.launch.serve``.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-1b \\
         --batch 4 --prompt-len 16 --decode 16
 
-``--arch`` takes every ported config: gemma3-1b, falcon-mamba-7b,
-granite-3-2b, chatglm3-6b, granite-20b, granite-moe-1b-a400m,
-mixtral-8x7b, llama-3.2-vision-11b and seamless-m4t-medium
-(``repro_torch.configs.ARCH_IDS``). The VLM and the encoder-decoder take
-the reference's stubbed frontend: ``modality_stub`` image patches or
-speech frames in bf16 (``context``), which seamless-m4t-medium encodes
-again for every decode token, as the reference does.
+``--arch`` takes every config of the reference: gemma3-1b,
+falcon-mamba-7b, granite-3-2b, chatglm3-6b, granite-20b,
+granite-moe-1b-a400m, mixtral-8x7b, llama-3.2-vision-11b,
+seamless-m4t-medium and jamba-1.5-large-398b
+(``repro_torch.configs.ARCH_IDS``). At full depth jamba-1.5-large-398b
+holds 797 GB of bf16 weights, more than one card: the launcher builds
+them all, as the reference's does; ``--reduced`` serves it anywhere.
+The VLM and the encoder-decoder take the reference's stubbed frontend:
+``modality_stub`` image patches or speech frames in bf16 (``context``),
+which seamless-m4t-medium encodes again for every decode token, as the
+reference does.
 
 It runs on CUDA unless given ``--device cpu``. Prefill and decode are timed
 with CUDA events on the card and with ``time.perf_counter`` on the CPU.

@@ -22,7 +22,7 @@ SHAPES = {
 LONG_CONTEXT_ARCHS = {
     "gemma3-1b",        # 5:1 local(sw=512):global
     "mixtral-8x7b",     # SWA-4096 everywhere
-    "jamba-1.5-large-398b",  # 63/72 layers O(1)-state mamba
+    "jamba-1.5-large-398b",  # 63/72 layers O(1)-state mamba (+ MLP/MoE FFN)
     "falcon-mamba-7b",  # attention-free
 }
 

@@ -4,12 +4,13 @@ layout — port of ``repro/models/transformer.py:139-454``.
 The params and caches keep the reference's layout (layers of whole periods
 stacked along a leading ``n_periods`` axis, the rest unrolled as
 ``remainder/r<i>``); the reference's ``lax.scan`` over periods becomes a
-Python loop over slices of the stacked tensors. Ported layer kinds:
-attention with an MLP or a MoE FFN (``models/moe.py``), attention without
-an FFN, gated cross-attention with an MLP onto a context ``ctx`` (image
-patches, or the encoder's output from ``encode``), and attention-free
-Mamba layers; Mamba layers with an FFN raise ``NotImplementedError``.
-``impl`` picks the kernels (``kernels/ops.py``)."""
+Python loop over slices of the stacked tensors. Every layer kind of the
+reference runs: a mixer (global or windowed self-attention, gated
+cross-attention onto a context ``ctx`` — image patches, or the encoder's
+output from ``encode`` — or a Mamba block), then, unless the FFN is
+``none``, ``norm2`` and an MLP or a MoE FFN (``models/moe.py``), as
+jamba-1.5-large-398b's Mamba layers have. An unknown mixer or FFN raises
+``ValueError``. ``impl`` picks the kernels (``kernels/ops.py``)."""
 
 from __future__ import annotations
 
@@ -23,17 +24,6 @@ from repro_torch.models import moe as moe_lib
 from repro_torch.models.config import (ATTN, ATTN_LOCAL, CROSS, MAMBA, MLP,
                                        MOE, NONE, ModelConfig)
 from repro_torch.models.layers import embed_apply, mlp_apply, rms_norm
-
-
-_PORTED = {(ATTN, MLP), (ATTN_LOCAL, MLP), (ATTN, MOE), (ATTN_LOCAL, MOE),
-           (ATTN, NONE), (CROSS, MLP), (MAMBA, NONE)}
-
-
-def check_ported(mixer: str, ffn: str) -> None:
-    if (mixer, ffn) not in _PORTED:
-        raise NotImplementedError(
-            f"layer kind ({mixer}, {ffn}) is not ported yet: Mamba layers "
-            f"with an FFN come with ROADMAP.md Queue 1 item 11")
 
 
 def encode(params: dict, cfg: ModelConfig, frames: torch.Tensor,
@@ -66,11 +56,11 @@ def _apply_layer(lp: dict, cfg: ModelConfig, x: torch.Tensor, mixer: str,
                  ffn: str, *, positions: torch.Tensor,
                  ctx: torch.Tensor | None, cache: dict | None,
                  impl: str) -> tuple[torch.Tensor, dict, torch.Tensor | None]:
-    """One residual layer. Returns (x, state, MoE aux loss): the state is
-    the prefill K/V or Mamba state when ``cache`` is None, else the decode
+    """One residual layer: the mixer, then ``norm2`` and the FFN unless it
+    is ``none``. Returns (x, state, MoE aux loss): the state is the
+    prefill K/V or Mamba state when ``cache`` is None, else the decode
     cache updated in place, and ``{}`` for cross-attention, which keeps no
     cache; the aux is None but for MoE layers."""
-    check_ported(mixer, ffn)
     h = rms_norm(x, lp["norm1"], cfg.norm_eps)
     if mixer == MAMBA:
         if cache is None:
@@ -82,24 +72,27 @@ def _apply_layer(lp: dict, cfg: ModelConfig, x: torch.Tensor, mixer: str,
             for name, leaf in new.items():
                 cache[name].copy_(leaf)
             state = cache
-        return x + o, state, None
-    if mixer == CROSS:
+    elif mixer == CROSS:
         o = attn_lib.cross_attention(lp["mixer"], cfg, h, ctx, impl)
         o = o * torch.tanh(lp["gate"].float()).to(o.dtype)
-        kv = {}
-    else:
+        state = {}
+    elif mixer in (ATTN, ATTN_LOCAL):
         window = cfg.sliding_window if mixer == ATTN_LOCAL else 0
-        o, kv = attn_lib.self_attention(
+        o, state = attn_lib.self_attention(
             lp["mixer"], cfg, h, positions=positions, window=window,
             theta=_theta_for(cfg, mixer), cache=cache, impl=impl)
+    else:
+        raise ValueError(f"unknown mixer {mixer!r}")
     x = x + o
     if ffn == NONE:
-        return x, kv, None
+        return x, state, None
     h2 = rms_norm(x, lp["norm2"], cfg.norm_eps)
     if ffn == MOE:
         f, aux = moe_lib.moe_apply(lp["ffn"], cfg, h2, impl=impl)
-        return x + f, kv, aux
-    return x + mlp_apply(lp["ffn"], h2, cfg.act, impl=impl), kv, None
+        return x + f, state, aux
+    if ffn == MLP:
+        return x + mlp_apply(lp["ffn"], h2, cfg.act, impl=impl), state, None
+    raise ValueError(f"unknown ffn {ffn!r}")
 
 
 def _slots(cfg: ModelConfig):
@@ -241,15 +234,16 @@ def _assemble(cfg: ModelConfig, t: torch.Tensor, per_layer: dict) -> dict:
 def init_cache(cfg: ModelConfig, B: int, S: int, device=None) -> dict:
     """Decode cache sized for a context of S tokens."""
     bufs = {}
-    for key, i, mixer, ffn in _slots(cfg):
-        check_ported(mixer, ffn)
+    for key, i, mixer, _ in _slots(cfg):
         if mixer == MAMBA:
             bufs[(key, i)] = mamba_lib.mamba_init_cache(cfg, B, device)
         elif mixer == CROSS:
             bufs[(key, i)] = {}
-        else:
+        elif mixer in (ATTN, ATTN_LOCAL):
             bufs[(key, i)] = _empty_buffer(
                 cfg, B, _buffer_width(cfg, mixer, S), device)
+        else:
+            raise ValueError(f"unknown mixer {mixer!r}")
     return _assemble(cfg, torch.zeros((B,), dtype=torch.int32, device=device),
                      bufs)
 

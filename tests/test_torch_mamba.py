@@ -175,8 +175,11 @@ def test_config_matches_reference():
         dataclasses.asdict(jget_config(ARCH))
     assert dataclasses.asdict(get_reduced(ARCH)) == \
         dataclasses.asdict(jget_reduced(ARCH))
-    with pytest.raises(NotImplementedError, match="MoE"):
-        get_config("jamba-1.5-large-398b")
+    # jamba-1.5-large-398b, whose Mamba layers carry an MLP or a MoE FFN
+    assert dataclasses.asdict(get_config("jamba-1.5-large-398b")) == \
+        dataclasses.asdict(jget_config("jamba-1.5-large-398b"))
+    assert dataclasses.asdict(get_reduced("jamba-1.5-large-398b")) == \
+        dataclasses.asdict(jget_reduced("jamba-1.5-large-398b"))
 
 
 @pytest.mark.parametrize("seq", [16, 2])

@@ -55,8 +55,11 @@ def _np(x):
 def test_configs_match_reference():
     assert dataclasses.asdict(get_config("gemma3-1b")) == \
         dataclasses.asdict(jget_config("gemma3-1b"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config("jamba-1.5-large-398b")
+    for name in ("jamba-1.5-large-398b",):   # the last arch ported
+        assert dataclasses.asdict(get_config(name)) == \
+            dataclasses.asdict(jget_config(name))
+        assert dataclasses.asdict(get_reduced(name)) == \
+            dataclasses.asdict(jget_reduced(name))
     with pytest.raises(ValueError):
         get_config("no-such-arch")
 
@@ -99,16 +102,40 @@ def test_init_cache_matches_reference_layout():
 
 
 def test_unported_layer_kinds_raise():
-    """(mamba, mlp), one of jamba's layer kinds (ROADMAP Queue 1 item
-    11)."""
-    cfg = dataclasses.replace(get_reduced("falcon-mamba-7b"),
-                              ffn_pattern=("mlp",))
-    with pytest.raises(NotImplementedError):
-        bridge.param_shapes(cfg)
-    with pytest.raises(NotImplementedError):
-        tm.init_cache(cfg, 1, 4)
-    with pytest.raises(NotImplementedError):
-        tm.check_ported("mamba", "mlp")
+    """Mamba layers followed by an MLP or a MoE FFN (jamba-1.5-large-398b's
+    layer kinds) on the reduced falcon-mamba-7b: ``bridge.param_shapes``
+    and ``tm.init_cache`` give the reference's ``init_params`` and
+    ``init_cache`` paths, shapes and dtypes. An unknown mixer or FFN raises
+    ``ValueError`` in both packages."""
+    def kinds(get, ffn):
+        return dataclasses.replace(get("falcon-mamba-7b"), ffn_pattern=(ffn,),
+                                   d_ff=128, n_experts=4, top_k=2)
+    for ffn in ("mlp", "moe"):
+        cfg, jcfg = kinds(get_reduced, ffn), kinds(jget_reduced, ffn)
+        want = jax.eval_shape(lambda: jinit_params(jcfg, jax.random.PRNGKey(0)))
+        assert [(p, tuple(s), str(dt).replace("torch.", "")) for p, (s, dt)
+                in bridge.leaves(bridge.param_shapes(cfg))] == \
+            [(p, tuple(x.shape), str(x.dtype)) for p, x in bridge.leaves(want)]
+        assert {p.split("/")[2] for p, _ in bridge.leaves(want)
+                if p.startswith("periods/")} == {"norm1", "mixer", "norm2",
+                                                 "ffn"}
+        want = jinit_cache(jcfg, 3, 12)
+        assert {p: (tuple(x.shape), str(x.dtype).replace("torch.", ""))
+                for p, x in bridge.leaves(tm.init_cache(cfg, 3, 12))} == \
+            {p: (tuple(x.shape), str(x.dtype))
+             for p, x in bridge.leaves(jax.tree.map(np.asarray, want))}
+    for field, bad in (("layer_pattern", ("conv",)), ("ffn_pattern", ("glu",))):
+        c, jc = (dataclasses.replace(x, **{field: bad}) for x in (cfg, jcfg))
+        with pytest.raises(ValueError):
+            jinit_params(jc, jax.random.PRNGKey(0))
+        with pytest.raises(ValueError):
+            bridge.param_shapes(c)
+    c, jc = (dataclasses.replace(x, layer_pattern=("conv",))
+             for x in (cfg, jcfg))
+    with pytest.raises(ValueError):
+        jinit_cache(jc, 1, 4)
+    with pytest.raises(ValueError):
+        tm.init_cache(c, 1, 4)
 
 
 # ------------------------------------------------------------------ bridge

@@ -1,7 +1,7 @@
 """The port's training path against the JAX package, on the CPU: the
 optimizers (repro_torch.optim), the loss (cross_entropy,
 chunked_cross_entropy, loss_fn), the grads of ``loss_fn`` on the reduced
-configs of all nine archs, one ``make_train_step`` with 1 and 2
+configs of all ten archs, one ``make_train_step`` with 1 and 2
 microbatches on gemma3-1b and on falcon-mamba-7b, the autograd Functions
 of ``kernels/ops.py`` (the scan's against ``jax.vjp`` of the reference's
 ``mamba_scan_ref``) and the plain backward passes of flash attention and
@@ -48,13 +48,20 @@ from repro_torch.models import transformer as tm  # noqa: E402
 TOL = 2e-2
 B, S = 2, 24
 GATE = 0.5
-# the nine archs, whose reduced configs train on the card too
+# the ten archs, whose reduced configs train on the card too
 ARCHS = ("gemma3-1b", "granite-3-2b", "chatglm3-6b", "granite-20b",
          "granite-moe-1b-a400m", "mixtral-8x7b", "llama-3.2-vision-11b",
-         "seamless-m4t-medium", "falcon-mamba-7b")
+         "seamless-m4t-medium", "falcon-mamba-7b", "jamba-1.5-large-398b")
 # falcon-mamba-7b's sequence: past the reference's CHUNK (128) and not a
 # multiple of it (repro/models/mamba.py pads and masks the tail)
 SEQ = {"falcon-mamba-7b": 200}
+# tests/test_torch_mamba.py's gains for a model's Mamba mixers, dt_bias 0
+LOUD_MODEL = {"in_proj": 3.0, "conv_w": 3.0, "x_proj": 3.0, "out_proj": 1.0}
+# archs whose grads are held in fp32 on both sides: the bf16 grads of the
+# reduced jamba's Mamba mixers and norms (8 layers, FFNs after each) lie
+# up to 3.9x the tolerance from the reference's own fp32 grads, in either
+# package, while the two packages' fp32 grads agree within it everywhere
+FP32_GRADS = ("jamba-1.5-large-398b",)
 
 
 def _np(x):
@@ -83,13 +90,34 @@ def _with_gates(tree, cfg, value):
     return dict(tree, periods=periods)
 
 
+def _with_loud_mamba(tree, cfg):
+    """The numpy params tree with ``LOUD_MODEL`` on every Mamba mixer of a
+    model whose Mamba layers carry an FFN (jamba-1.5-large-398b's one
+    period), dt_bias 0: at init such a layer adds almost nothing, and its
+    mixer's grads (~1e-13) are fp32 rounding noise of the two packages'
+    sums."""
+    if not any(m == "mamba" and f != "none" for m, f in cfg.layer_kinds()):
+        return tree
+    periods = dict(tree["periods"])
+    for j, mixer in enumerate(cfg.layer_pattern):
+        if mixer == "mamba":
+            lp = dict(periods[f"l{j}"])
+            m = dict(lp["mixer"])
+            for name, g in LOUD_MODEL.items():
+                m[name] = (m[name].astype(np.float32) * g).astype(m[name].dtype)
+            m["dt_bias"] = np.zeros_like(m["dt_bias"])
+            periods[f"l{j}"] = dict(lp, mixer=m)
+    return dict(tree, periods=periods)
+
+
 def _setup(arch, batch=B, seq=S, fp32=False):
     """(cfg, jcfg, reference params, port params, tokens, labels, ctx as
-    (reference, port) or None) for the reduced ``arch``, gates at GATE;
-    with ``fp32`` every leaf cast to fp32 on both sides."""
+    (reference, port) or None) for the reduced ``arch``, gates at GATE,
+    Mamba mixers that precede an FFN at LOUD_MODEL; with ``fp32`` every
+    leaf cast to fp32 on both sides."""
     cfg, jcfg = get_reduced(arch), jget_reduced(arch)
-    tree = _with_gates(jax.tree.map(np.asarray, jinit_params(
-        jcfg, jax.random.PRNGKey(0))), cfg, GATE)
+    tree = _with_loud_mamba(_with_gates(jax.tree.map(np.asarray, jinit_params(
+        jcfg, jax.random.PRNGKey(0))), cfg, GATE), cfg)
     params_t = bridge.params_from_numpy(tree, cfg, device="cpu")
     if fp32:
         tree = jax.tree.map(lambda a: a.astype(np.float32), tree)
@@ -325,8 +353,9 @@ def test_loss_and_grads_match_reference(arch, monkeypatch):
     these inputs), and that token's grads then differ in every layer
     below. falcon-mamba-7b's A_log grad sums over every step and channel,
     where the two packages' scans round differently (within the
-    tolerance)."""
-    (lj, gj), (lt, gt), pt = _loss_and_grads(arch, monkeypatch)
+    tolerance). The archs of FP32_GRADS run in fp32 on both sides."""
+    (lj, gj), (lt, gt), pt = _loss_and_grads(arch, monkeypatch,
+                                             fp32=arch in FP32_GRADS)
     np.testing.assert_allclose(float(lt), float(lj), rtol=TOL)
     want = dict(bridge.leaves(jax.tree.map(np.asarray, gj)))
     got = dict(bridge.leaves(gt))
