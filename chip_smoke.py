@@ -6,6 +6,7 @@
                                              # each launch profiled
     python3 chip_smoke.py --only scan-bwd    # build, then phase 8(a') alone
     python3 chip_smoke.py --only stream      # build, then phase 1'(a) alone
+    python3 chip_smoke.py --only mesh        # build, then phase 7m alone
 
 1. Prints the card's name and power limit, then builds the seven CUDA
    kernels from ``src/repro_torch/kernels/csrc`` with nvcc (sm_90a), one
@@ -186,6 +187,29 @@
    beyond MODEL_TOL; the reduced config runs against the CPU with
    LOUD_MODEL on every Mamba mixer, whose CPU logits must differ from
    init's beyond MODEL_TOL.
+7m. (Run right after phase 7's decoders.) granite-moe-1b-a400m at full
+   width and all 24 layers through a 1-rank ``DeviceMesh``: flash
+   attention at its prefill shape (16:8, D 64) against its plain
+   version; then a 1-rank NCCL group (``HashStore``, ``device_id``
+   cuda:0, no port) and ``launch/mesh.make_host_mesh("cuda")``. The
+   launcher's serving path (``run_prefill``, then MESH_DECODE greedy
+   tokens by ``run_decode``; batch 4, prompts of 1024, seed 0) runs
+   resident, then with the params placed as DTensors by
+   ``launch/sharding.param_specs`` (``fsdp_serve`` from the arch's
+   settings), the prompts by ``batch_spec`` and the prefill's cache by
+   ``cache_specs``, the MoE on the shard-local path (``moe_apply(...,
+   mesh=)``: each rank's expert slices, one all_reduce of y over
+   'model'). It fails unless the mesh run's logits and tokens equal the
+   resident run's bit for bit and its launches by kernel and route equal
+   the resident run's (the counts set to 0 before each run's prefill);
+   then one more run of each, mesh first, held to the same bits, so that
+   the walls come in turns (resident, mesh, mesh, resident); and one
+   token of each under cProfile (``host_hotspots``: its host time by
+   function). Then ``compressed_psum`` of a (49 155, 1 024) fp32 tensor over the
+   group must equal ``decompress(compress(x))`` with ``==``, and
+   ``make_production_mesh()`` must raise ``ValueError`` at world size 1.
+   The group is destroyed in a ``finally``; the phase's seconds go on the
+   ``cut:`` line.
 8. Training (after the serve phases, their memory freed):
    (a) the flash backward kernel (``flash_attention_bwd``) at BWD_CASES:
    granite-3-2b's microbatch (32:8, D 64, causal), gemma3-1b's local
@@ -384,6 +408,7 @@ DEPTH_CUT = {"mixtral-8x7b": 8}
 # most of the 93 GB over the host link; 4, not 8, to pay for jamba's
 # phase); its first STREAM_CHECK_LAYERS layers streamed against resident;
 # the card's peak under STREAM_PEAK_GB
+MESH_DECODE = 8        # tokens of the mesh phase's two runs
 STREAM_ARCH = "mixtral-8x7b"
 STREAM_DECODE = 4
 STREAM_CHECK_LAYERS = 8
@@ -2048,6 +2073,252 @@ def jamba_phase(t_run: float) -> dict:
           flush=True)
     return dict(flash=flash, scan=scan, matmul=mm_rows, matmul_phases=mm_phases,
                 served=served, seconds=seconds, kernels_seconds=kernels_s)
+
+
+# ------------------------------------------------------------------ mesh
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _served(cfg, params, toks, mesh=None, place=None):
+    """One prefill and MESH_DECODE greedy tokens of the launcher's serving
+    path (``launch/serve.py``), counted: -> (logits, tokens, prefill and
+    whole-run launches by kernel and route, prefill ms, decode ms). On a
+    ``mesh``, ``place`` turns the prefill's cache into what the decode
+    loop takes."""
+    from repro_torch.launch import serve
+
+    _reset_counts()
+    with torch.inference_mode():
+        tok, logits, cache, pre_ms = serve.run_prefill(cfg, params, toks,
+                                                       mesh=mesh)
+    pre = _read_counts()
+    if place is not None:
+        cache = place(cache)
+    with torch.inference_mode():
+        outs, _, dec_ms = serve.run_decode(cfg, params, tok, cache,
+                                           MESH_DECODE, mesh=mesh)
+    counts = _read_counts()
+    return (logits, torch.cat([tok] + outs, dim=1), pre, counts, pre_ms,
+            dec_ms)
+
+
+def host_hotspots(fn, top: int = 10) -> dict:
+    """One run of ``fn`` under cProfile: its host wall (ms, synchronized)
+    and the ``top`` functions by their own host time (tottime)."""
+    import cProfile
+    import pstats
+
+    dev = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    _sync(dev)
+    prof = cProfile.Profile()
+    t0 = time.perf_counter()
+    prof.enable()
+    fn()
+    _sync(dev)
+    prof.disable()
+    wall = (time.perf_counter() - t0) * 1e3
+    stats = pstats.Stats(prof).stats
+    rows = sorted(stats.items(), key=lambda kv: -kv[1][2])[:top]
+    return dict(wall_ms=wall, top=[
+        (f"{os.path.basename(f)}:{line}({name})", nc, tt * 1e3)
+        for (f, line, name), (_, nc, tt, _, _) in rows])
+
+
+def mesh_compare(cfg, params, toks, mesh) -> dict:
+    """The serving path resident, then through ``mesh`` (on any device):
+    the params placed by ``param_specs`` (``fsdp_serve`` from the arch's
+    settings), the prompts by ``batch_spec`` and the prefill's cache by
+    ``cache_specs``, as DTensors. Raises unless the two runs' logits and
+    tokens are bit-equal and their launches by kernel and route equal.
+    Each run is warmed up first on the first 128 positions."""
+    from repro_torch.bridge import leaves, unflatten
+    from repro_torch.launch import serve
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch.mesh import axis_sizes, data_axes, dp_size
+    from repro_torch.launch.settings import settings_for
+
+    dev = toks.device
+    sizes, dp, n = axis_sizes(mesh), data_axes(mesh), dp_size(mesh)
+    B = toks.shape[0]
+    with torch.inference_mode():
+        tok, _, cache, _ = serve.run_prefill(cfg, params, toks[:, :128])
+        serve.run_decode(cfg, params, tok, cache, 2)
+    del cache
+    resident = _served(cfg, params, toks)
+
+    _sync(dev)
+    t0 = time.perf_counter()
+    fsdp = settings_for(cfg.name).fsdp_serve
+    dparams = shd.distribute(params, mesh, shd.param_specs(
+        params, fsdp=fsdp, dp_axes=dp, dp_total=n, axis_sizes=sizes))
+    mine = shd.distribute({"tokens": toks}, mesh,
+                          {"tokens": shd.batch_spec(B, dp, n)})
+    mine = mine["tokens"].to_local()
+    _sync(dev)
+    place_ms = (time.perf_counter() - t0) * 1e3
+    placed = {}
+
+    def place(cache):   # by cache_specs; the decode loop takes the local shards
+        t = time.perf_counter()
+        placed["cache"] = shd.distribute(cache, mesh, shd.cache_specs(
+            cache, B, dp, n, sizes["model"]))
+        local = unflatten({p: x.to_local() for p, x in leaves(placed["cache"])})
+        _sync(dev)
+        placed["ms"] = (time.perf_counter() - t) * 1e3
+        return local
+
+    with torch.inference_mode():
+        tok, _, cache, _ = serve.run_prefill(cfg, dparams, mine[:, :128],
+                                             mesh=mesh)
+        serve.run_decode(cfg, dparams, tok, cache, 2, mesh=mesh)
+    del cache
+    meshed = _served(cfg, dparams, mine, mesh, place)
+    kinds = {type(x).__name__ for _, x in leaves(dparams)}
+    kinds |= {type(x).__name__ for _, x in leaves(placed["cache"])}
+    if kinds != {"DTensor"}:
+        raise AssertionError(f"mesh: placed leaves of types {kinds}")
+    # the walls in turns (resident, mesh, mesh, resident): the host's
+    # speed drifts within a call
+    meshed2 = _served(cfg, dparams, mine, mesh, place)
+    resident2 = _served(cfg, params, toks)
+    for run in (meshed, meshed2, resident2):
+        for name, a, b in zip(("logits", "tokens", "prefill launches",
+                               "launches"), resident[:4], run[:4]):
+            same = torch.equal(a, b) if name in ("logits", "tokens") \
+                else a == b
+            if not same:
+                raise AssertionError(f"mesh: the mesh path's {name} differ "
+                                     f"from the resident path's: {b} "
+                                     f"against {a}")
+    turns = [(tag, r[4], r[5]) for tag, r in (
+        ("resident", resident), ("mesh", meshed), ("mesh", meshed2),
+        ("resident", resident2))]
+    # where a token's host time goes, each path once more
+    tok = meshed[1][:, -1:]
+    with torch.inference_mode():
+        _, cache, _ = serve.run_prefill(cfg, params, toks)[1:]
+        hot_res = host_hotspots(lambda: serve.run_decode(cfg, params, tok,
+                                                         cache, 1))
+        _, cache, _ = serve.run_prefill(cfg, dparams, mine, mesh=mesh)[1:]
+        hot_mesh = host_hotspots(lambda: serve.run_decode(
+            cfg, dparams, tok, cache, 1, mesh=mesh))
+    del cache
+    return dict(mesh=sizes, fsdp=fsdp, place_params_ms=place_ms,
+                host_token_resident=hot_res, host_token_mesh=hot_mesh,
+                place_cache_ms=placed["ms"],
+                resident=dict(prefill_ms=resident[4], decode_ms=resident[5],
+                              launches=resident[3],
+                              prefill_launches=resident[2]),
+                meshed=dict(prefill_ms=meshed[4], decode_ms=meshed[5],
+                            launches=meshed[3], prefill_launches=meshed[2]),
+                turns=turns, continuation=meshed[1][0].tolist())
+
+
+def psum_check(x: torch.Tensor, group=None) -> dict:
+    """``compressed_psum`` of ``x`` over a group of one rank: raises
+    unless it equals ``decompress(compress(x))`` with ``==`` (the shared
+    scale is the rank's own)."""
+    from repro_torch.optim.compression import (compress, compressed_psum,
+                                               decompress)
+
+    q, scale = compress(x)
+    _sync(x.device)
+    t0 = time.perf_counter()
+    got = compressed_psum(x, group)
+    _sync(x.device)
+    ms = (time.perf_counter() - t0) * 1e3
+    if not torch.equal(got, decompress(q, scale, tuple(x.shape), x.dtype)):
+        raise AssertionError("mesh: compressed_psum over one rank is not "
+                             "decompress(compress(x))")
+    return dict(shape=list(x.shape), ms=ms, fp32_bytes=x.numel() * 4,
+                payload_bytes=q.numel() * q.element_size() + scale.numel() * 4)
+
+
+def mesh_phase() -> dict:
+    """granite-moe-1b-a400m at full width and depth through a 1-rank
+    DeviceMesh (see the module docstring): flash at its prefill shape,
+    ``mesh_compare``, ``psum_check`` at (49 155, 1 024) fp32, and
+    ``make_production_mesh`` refused."""
+    import torch.distributed as dist
+
+    from repro_torch.bridge import init_params, leaf_sizes
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import (close_mesh, make_host_mesh,
+                                         make_production_mesh)
+
+    t0 = time.perf_counter()
+    cfg = get_config(MOE_ARCH)
+    flash = flash_case(BATCH, cfg.n_heads, cfg.n_kv_heads, PROMPT, PROMPT,
+                       cfg.resolved_head_dim, True, 0, "d64 16:8", "wgmma",
+                       model_layout=True)
+    free_memory()
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1, device_id=torch.device("cuda", 0))
+    mesh = None
+    try:
+        mesh = make_host_mesh("cuda")
+        params = init_params(cfg, seed=0, device="cuda")
+        weight_bytes = sum(b for _, b in leaf_sizes(params))
+        toks = serve.prompts(cfg, BATCH, PROMPT, "cuda")
+        out = mesh_compare(cfg, params, toks, mesh)
+        counts = out["meshed"]["launches"]
+        if not counts["matmul"] or not counts["flash_attention"]:
+            raise AssertionError(f"mesh: a kernel of the path was not "
+                                 f"launched: {counts}")
+        out["all_reduces_a_call"] = 3 * cfg.n_layers
+        print(f"mesh {MOE_ARCH}: torch {torch.__version__}, 1-rank mesh "
+              f"{out['mesh']} (NCCL); "
+              f"{weight_bytes / 1e9:.3f} GB of params placed by param_specs "
+              f"(fsdp_serve={out['fsdp']}) in {out['place_params_ms']:.1f} "
+              f"ms, the prefill's cache by cache_specs in "
+              f"{out['place_cache_ms']:.1f} ms; in turns, prefill "
+              f"{BATCH}x{PROMPT} and {MESH_DECODE} tokens: "
+              + ", ".join(f"{tag} {pre:.2f} and {dec:.2f} ms"
+                          for tag, pre, dec in out["turns"])
+              + f"; logits and tokens bit-equal, launches equal {counts}; "
+              f"{out['all_reduces_a_call']} all_reduces a prefill and a token "
+              f"(y over 'model', aux over each mesh dim)", flush=True)
+        print(f"mesh {MOE_ARCH}: first request continuation "
+              f"{out['continuation']}", flush=True)
+        for tag in ("resident", "mesh"):
+            hot = out[f"host_token_{tag}"]
+            print(f"mesh {MOE_ARCH}: one {tag} token under cProfile "
+                  f"{hot['wall_ms']:.2f} ms; own host time by function:",
+                  flush=True)
+            for where, calls, ms in hot["top"]:
+                print(f"    {ms:9.3f} ms  {calls:6d}x  {where}", flush=True)
+        del params
+        free_memory()
+        g = torch.Generator(device="cuda").manual_seed(34)
+        psum = psum_check(torch.randn((cfg.vocab, cfg.d_model), generator=g,
+                                      device="cuda"))
+        print(f"mesh compressed_psum {tuple(psum['shape'])} fp32: equals "
+              f"decompress(compress(x)); int8 payload "
+              f"{psum['payload_bytes']} bytes (q and fp32 scales) against "
+              f"{psum['fp32_bytes']} of fp32; {psum['ms']:.2f} ms "
+              f"host-timed", flush=True)
+        try:
+            make_production_mesh()
+        except ValueError as e:
+            refused = str(e)
+        else:
+            raise AssertionError("mesh: make_production_mesh() built a mesh "
+                                 "at world size 1")
+        print(f"mesh make_production_mesh(): refused: {refused}", flush=True)
+    finally:
+        if mesh is not None:
+            close_mesh(mesh)
+        dist.destroy_process_group()
+    free_memory()
+    seconds = time.perf_counter() - t0
+    print(f"mesh phase done in {seconds:.1f} s", flush=True)
+    return dict(out, arch=MOE_ARCH, weight_bytes=weight_bytes, flash=flash,
+                decode_tokens=MESH_DECODE, psum=psum,
+                production_refused=refused, seconds=seconds)
 
 
 # ------------------------------------------- VLM and encoder-decoder
@@ -4160,9 +4431,11 @@ def summarize(name, weighted, launches, source, replaces):
         else sum(r["library_ms"] * n for r, n in weighted))
 
 
-def cut_seconds(jamba: dict, new: dict, trained: dict, streamed: dict) -> dict:
-    """What jamba-1.5-large-398b's serving added to the run, and what the
-    cuts that pay for it saved, from this run's own measurements: the
+def cut_seconds(jamba: dict, new: dict, trained: dict, streamed: dict,
+                meshed: dict) -> dict:
+    """What jamba-1.5-large-398b's serving and the mesh phase added to the
+    run, and what the cuts that pay for them saved, from this run's own
+    measurements: the
     streamed decode's tokens beyond STREAM_DECODE, up to the 8 it took
     before, at each policy's and the layer check's measured ms a token;
     the plain versions' warm-ups and replays beyond one each
@@ -4184,7 +4457,8 @@ def cut_seconds(jamba: dict, new: dict, trained: dict, streamed: dict) -> dict:
                saved=dict(stream_decode_s=stream_s,
                           plain_once_at_least_s=PLAIN_TIMING["saved_s"],
                           launcher_steps_est_s=launcher_s),
-               plain_timing=dict(PLAIN_TIMING))
+               plain_timing=dict(PLAIN_TIMING),
+               mesh_phase_s=meshed["seconds"])
     added, saved = sum(out["added"].values()), sum(out["saved"].values())
     print(f"cut: jamba's serving added {added:.1f} s (its phase "
           f"{jamba['seconds']:.1f}, mixtral-8x7b's 32 layers' shapes "
@@ -4194,7 +4468,8 @@ def cut_seconds(jamba: dict, new: dict, trained: dict, streamed: dict) -> dict:
           f"{PLAIN_TIMING['cases']} plain versions timed once (in "
           f"{PLAIN_TIMING['seconds']:.1f} s) at least "
           f"{PLAIN_TIMING['saved_s']:.1f}, the launcher's steps about "
-          f"{launcher_s:.1f}", flush=True)
+          f"{launcher_s:.1f}; the mesh phase added {meshed['seconds']:.1f} s",
+          flush=True)
     return out
 
 
@@ -4202,11 +4477,13 @@ def main(argv=None) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--only", choices=("flash-bwd", "scan-bwd", "stream"),
+    ap.add_argument("--only", choices=("flash-bwd", "scan-bwd", "stream",
+                                       "mesh"),
                     help="build the kernels and run only phase 8(a), the "
                     "flash backward kernel's cases, or 8(a'), the scan "
                     "backward kernel's, with each launch's profiled device "
-                    "time; or phase 1'(a), mixtral-8x7b streamed")
+                    "time; or phase 1'(a), mixtral-8x7b streamed; or phase "
+                    "7m, granite-moe-1b-a400m through a 1-rank mesh")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -4232,6 +4509,9 @@ def main(argv=None) -> int:
         return 0
     if args.only == "stream":
         stream_phase(card)
+        return 0
+    if args.only == "mesh":
+        mesh_phase()
         return 0
 
     t_run = time.perf_counter()
@@ -4273,6 +4553,9 @@ def main(argv=None) -> int:
     new = new_archs_phase(t_run)
     launched.append(new.pop("launcher"))
     free_memory()
+    meshed = mesh_phase()
+    print(f"mesh phase done at {time.perf_counter() - t_run:.1f} s",
+          flush=True)
     ctxp = context_archs_phase(t_run)
     launched.append(ctxp.pop("launcher"))
     free_memory()
@@ -4345,6 +4628,21 @@ def main(argv=None) -> int:
         summarize("matmul@granite-20b-decode", g20_phases["decode"],
                   split(s20, "matmul")[0], mm_src, mm_rep),
     ]
+    # granite-moe-1b-a400m through the 1-rank mesh (phase 7m): its
+    # shapes are the resident run's, timed in phase 7 (matmul) and 7m
+    # (flash at 16:8); launches of the mesh run
+    mesh_run = meshed["meshed"]
+    mesh_pre = sum(mesh_run["prefill_launches"]["matmul"].values())
+    kernels += [
+        summarize("matmul@mesh-prefill", moe_phases["prefill"], mesh_pre,
+                  mm_src, mm_rep),
+        summarize("matmul@mesh-decode", moe_phases["decode"],
+                  sum(mesh_run["launches"]["matmul"].values()) - mesh_pre,
+                  mm_src, mm_rep),
+        summarize("flash_attention@mesh-prefill",
+                  [(meshed["flash"], smoe["n_layers"])],
+                  sum(mesh_run["prefill_launches"]["flash_attention"]
+                      .values()), fa_src, fa_rep)]
     svlm, s2t = (ctxp["served"][n] for n in CTX_ARCHS)
     ctx_mm = ctxp.pop("matmul_phases")   # (row, calls): not for the json
     cf = ctxp["flash"]
@@ -4420,7 +4718,7 @@ def main(argv=None) -> int:
                   "none: no TPU kernel; the reference differentiates its "
                   "chunked associative scan (src/repro/models/mamba.py:96) "
                   "through XLA")]
-    cut = cut_seconds(jamba, new, trained, streamed)
+    cut = cut_seconds(jamba, new, trained, streamed, meshed)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(dict(card=card, torch=torch.__version__,
@@ -4430,7 +4728,8 @@ def main(argv=None) -> int:
                        serve_mamba=served_m, paper_workloads=work,
                        kernels=kernels, link_bw=link, serving_rate=rates,
                        launcher=launched, sched=sched, new_archs=new,
-                       context_archs=ctxp, jamba=jamba, train=trained,
+                       context_archs=ctxp, jamba=jamba, mesh=meshed,
+                       train=trained,
                        stream=streamed,
                        examples=examples, cut=cut,
                        seconds=time.perf_counter() - t_run), f, indent=1)

@@ -16,8 +16,8 @@ Three mechanisms, as in the reference:
      resharding plan: ZeRO/FSDP shards owned by the dead pod are recovered
      from the last checkpoint, everything else reshapes in place. Global
      batch is preserved by raising per-pod microbatching. It is plain
-     arithmetic on shapes; the port's meshes come with ROADMAP.md Queue 1
-     item 11.
+     arithmetic on shapes, on a mesh's (shape, axes) as
+     ``launch/mesh.py`` builds it.
 """
 
 from __future__ import annotations

@@ -29,9 +29,15 @@ IMPLS = ("auto", "cuda", "torch")
 
 
 def uses_kernel(x: torch.Tensor, impl: str) -> bool:
-    """Whether ``impl`` sends an operand like ``x`` to a CUDA kernel."""
+    """Whether ``impl`` sends an operand like ``x`` to a CUDA kernel. A
+    DTensor raises: the kernels take a rank's local tensors only."""
     if impl not in IMPLS:
         raise ValueError(f"impl must be auto|cuda|torch, got {impl!r}")
+    if type(x) is not torch.Tensor:
+        from torch.distributed.tensor import DTensor
+        if isinstance(x, DTensor):
+            raise TypeError("a DTensor reached a kernel's dispatch; pass its "
+                            "local tensor (to_local())")
     if impl == "torch":
         return False
     if impl == "cuda" and not x.is_cuda:

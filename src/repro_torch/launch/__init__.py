@@ -1,2 +1,3 @@
-"""Launch layer of the port: serve step factories and the serving
-launcher."""
+"""Launch layer of the port: meshes and sharding rules (``mesh``,
+``sharding``), serve and train step factories, and the serving and
+training launchers."""

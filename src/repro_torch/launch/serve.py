@@ -63,8 +63,11 @@ from repro_torch.bridge import init_params, leaves
 from repro_torch.configs import ARCH_IDS, get_config, get_reduced
 from repro_torch.data import SyntheticLM, modality_stub
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import (close_mesh, make_host_mesh,
+                                     make_production_mesh)
 from repro_torch.launch.steps import (make_prefill_step, make_serve_step,
                                       model_context)
+from repro_torch.models.transformer import local_params
 from repro_torch.svm import (FaultPlan, ModelSpec, StreamingExecutor,
                              run_schedule)
 from repro_torch.svm.scheduler import ADMIT_MODES, POLICIES
@@ -198,12 +201,14 @@ def context(cfg, batch: int, device) -> torch.Tensor | None:
 
 
 def run_prefill(cfg, params, tokens: torch.Tensor, ctx=None,
-                impl: str = "auto"):
+                impl: str = "auto", mesh=None):
     """Prefill ``tokens`` (B,S) with the modality context ``ctx`` ->
-    (first greedy token (B,1), last-position logits (B,1,V), cache, ms)."""
+    (first greedy token (B,1), last-position logits (B,1,V), cache, ms).
+    On a ``mesh`` the params may be DTensors, and ``tokens`` are this
+    rank's rows (``models/transformer.py``)."""
     timer = _Timer(tokens.device)
     timer.start()
-    logits, cache = make_prefill_step(cfg, impl)(params, tokens, ctx)
+    logits, cache = make_prefill_step(cfg, impl, mesh)(params, tokens, ctx)
     tok = logits[:, -1].argmax(dim=-1).int()[:, None]
     return tok, logits, cache, timer.stop()
 
@@ -228,12 +233,16 @@ def decode_tokens(cfg, serve_step, params, tok, cache, ctx, steps: int,
 
 
 def run_decode(cfg, params, tok, cache, steps: int, ctx=None,
-               impl: str = "auto"):
-    """Greedy-decode ``steps`` tokens after ``tok`` -> (tokens, cache, ms)."""
+               impl: str = "auto", mesh=None):
+    """Greedy-decode ``steps`` tokens after ``tok`` -> (tokens, cache, ms).
+    On a ``mesh`` as ``run_prefill``; the params are made this rank's
+    (``local_params``) once, before the first token."""
     timer = _Timer(tok.device)
     timer.start()
-    outs, cache = decode_tokens(cfg, make_serve_step(cfg, impl), params, tok,
-                                cache, ctx, steps, impl)
+    if mesh is not None:
+        params = local_params(params, mesh)
+    outs, cache = decode_tokens(cfg, make_serve_step(cfg, impl, mesh), params,
+                                tok, cache, ctx, steps, impl)
     return outs, cache, timer.stop()
 
 
@@ -288,6 +297,9 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--decode", type=int, default=16)
+    ap.add_argument("--production-mesh", action="store_true",
+                    help="the (16, 16) production mesh: 256 ranks (raises "
+                         "in a world of another size)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
     ap.add_argument("--svm-budget-frac", type=float, default=0.0,
@@ -329,6 +341,17 @@ def main(argv: list[str] | None = None) -> None:
 
     device = resolve_device(args.device)
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
+    mesh = (make_production_mesh(device=device) if args.production_mesh
+            else make_host_mesh(device))
+    try:
+        _serve(args, cfg, device)
+    finally:
+        close_mesh(mesh)
+
+
+def _serve(args, cfg, device: torch.device) -> None:
+    """``main``'s run, inside its mesh (which, as the reference's, leaves
+    the computation on this process's device)."""
     params = init_params(cfg, seed=0, device=device)
 
     stream = None

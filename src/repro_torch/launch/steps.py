@@ -13,7 +13,8 @@ from repro_torch.kernels import ops
 from repro_torch.models.attention import NEG_INF
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import (_lm_head, decode_step, encode,
-                                            forward_hidden, prefill_hidden)
+                                            forward_hidden, prefill_hidden,
+                                            local_params)
 from repro_torch.optim import OptConfig, clip_by_global_norm, make_optimizer
 from repro_torch.optim.adamw import scaled
 
@@ -181,31 +182,38 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptConfig,
     return train_step
 
 
-def make_serve_step(cfg: ModelConfig, impl: str = "auto"):
+def make_serve_step(cfg: ModelConfig, impl: str = "auto", mesh=None):
     """Returns serve_step(params, token, cache[, ctx]) -> (next_ids, cache):
     one greedy decode step (B,1) int32 -> (B,1) int32; ``ctx`` is the
-    cross-attention context as ``model_context`` gives it."""
+    cross-attention context as ``model_context`` gives it. On a ``mesh``
+    (``models/transformer.py``) the params may be DTensors and the rest
+    is this rank's rows."""
 
     def serve_step(params, token, cache, ctx=None):
-        logits, cache = decode_step(params, cfg, token, cache, ctx, impl=impl)
+        logits, cache = decode_step(params, cfg, token, cache, ctx, impl=impl,
+                                    mesh=mesh)
         next_ids = logits[:, -1].argmax(dim=-1).int()
         return next_ids[:, None], cache
 
     return serve_step
 
 
-def make_prefill_step(cfg: ModelConfig, impl: str = "auto"):
+def make_prefill_step(cfg: ModelConfig, impl: str = "auto", mesh=None):
     """Returns prefill_step(params, tokens[, ctx]) -> (last_logits, cache);
     an encoder-decoder config encodes ``ctx`` (its frames) first. Like the
     reference, it calls prefill without ``cache_len``, so every decode
     buffer is ``prompt_len`` wide. Only the final position's logits are
     computed: the LM head runs on that row alone instead of computing the
     full (B,S,V) logits and slicing them, a 2 GB tensor at gemma3-1b
-    with a batch of 4 and 1024-token prompts."""
+    with a batch of 4 and 1024-token prompts. On a ``mesh`` as
+    ``make_serve_step``."""
 
     def prefill_step(params, tokens, ctx=None):
+        if mesh is not None:
+            params = local_params(params, mesh)
         c = model_context(params, cfg, ctx, impl)
-        x, cache = prefill_hidden(params, cfg, tokens, c, impl=impl)
+        x, cache = prefill_hidden(params, cfg, tokens, c, impl=impl,
+                                  mesh=mesh)
         return _lm_head(params, cfg, x[:, -1:], impl), cache
 
     return prefill_step

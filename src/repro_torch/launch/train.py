@@ -12,8 +12,11 @@ supervisor, with checkpoints under ``--ckpt``; a second run with the same
     PYTHONPATH=src python -m repro_torch.launch.train --arch granite-3-2b \\
         --reduced --steps 50 --batch 8 --seq 64
 
-The reference's ``--production-mesh`` comes with ROADMAP.md Queue 1 item
-11.
+``--production-mesh`` asks for the (16, 16) production mesh
+(``launch/mesh.py``), which needs 256 ranks and raises in a world of
+another size, as the reference's does on one device; without it the run
+takes the 1 x 1 host mesh. As in the reference, the mesh leaves the
+computation on this process's device.
 """
 
 from __future__ import annotations
@@ -32,6 +35,8 @@ from repro_torch.configs import ARCH_IDS, get_config, get_reduced
 from repro_torch.data import SyntheticLM
 from repro_torch.device import resolve_device
 from repro_torch.ft import TrainSupervisor
+from repro_torch.launch.mesh import (axis_sizes, close_mesh, make_host_mesh,
+                                     make_production_mesh)
 from repro_torch.launch.serve import context
 from repro_torch.launch.settings import settings_for
 from repro_torch.launch.steps import make_train_step
@@ -62,6 +67,7 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--ckpt", default=os.path.join(tempfile.gettempdir(),
                                                    "repro_torch_train_ckpt"),
                     help="checkpoint directory (default: under $TMPDIR)")
+    ap.add_argument("--production-mesh", action="store_true")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the kernels) or cpu (the plain versions)")
     args = ap.parse_args(argv)
@@ -69,9 +75,19 @@ def main(argv: list[str] | None = None) -> None:
     dev = resolve_device(args.device)
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
     st = settings_for(args.arch)
+    mesh = (make_production_mesh(device=dev) if args.production_mesh
+            else make_host_mesh(dev))
+    try:
+        _train(args, cfg, st, dev, axis_sizes(mesh))
+    finally:
+        close_mesh(mesh)
+
+
+def _train(args, cfg, st, dev: torch.device, mesh_shape: dict) -> None:
+    """``main``'s run, inside its mesh."""
     mb = 1 if args.reduced else st.microbatches
     print(f"arch={cfg.name} params={cfg.param_count()/1e6:.1f}M "
-          f"device={dev} microbatches={mb}")
+          f"mesh={mesh_shape} device={dev} microbatches={mb}")
 
     params = init_params(cfg, seed=0, device=dev)
     opt_cfg = OptConfig(kind=st.optimizer, lr=args.lr,

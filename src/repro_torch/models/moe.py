@@ -1,7 +1,6 @@
 """Top-k Mixture-of-Experts with capacity-bounded scatter dispatch — port
-of ``_moe_core`` (``repro/models/moe.py:52-101``). The reference's
-``shard_map`` path (``moe.py:104-135``) comes with ROADMAP.md Queue 1
-item 11.
+of ``_moe_core`` (``repro/models/moe.py:52-101``) and, given a mesh, of
+its shard-local ``shard_map`` path (``moe.py:104-135``).
 
 ``route`` picks each token's experts and gates; ``dispatch_combine``
 scatters every (token, choice) into its expert's capacity buffer, runs
@@ -83,11 +82,82 @@ def dispatch_combine(p: dict, cfg: ModelConfig, x: torch.Tensor,
 
 
 def moe_apply(p: dict, cfg: ModelConfig, x: torch.Tensor,
-              impl: str = "auto") -> tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, S, d) -> (y, Switch load-balancing aux loss, fp32 scalar)."""
+              impl: str = "auto", mesh=None
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, S, d) -> (y, Switch load-balancing aux loss, fp32 scalar).
+    Given a ``mesh``, the shard-local path (``_moe_apply_mesh``)."""
+    if mesh is not None:
+        return _moe_apply_mesh(p, cfg, x, impl, mesh)
+    return _moe_core(p, cfg, x, impl)
+
+
+def _moe_core(p: dict, cfg: ModelConfig, x: torch.Tensor, impl: str
+              ) -> tuple[torch.Tensor, torch.Tensor]:
     gate, idx, probs = route(p, cfg, x, impl)
     y = dispatch_combine(p, cfg, x, gate, idx, impl)
     e = cfg.n_experts
     me = probs.mean(dim=0)
     ce = (idx[:, 0, None] == torch.arange(e, device=x.device)).float().mean(0)
     return y, e * (me * ce).sum()
+
+
+# each rank's slice of the experts: the reference's shard_map in_specs
+# (moe.py:124-132), d_ff over "model"
+EXPERT_SPECS = {"router": (None, None), "wi_gate": (None, None, "model"),
+                "wi_up": (None, None, "model"), "wo": (None, "model", None)}
+
+
+def expert_slices(p: dict, mesh) -> dict:
+    """A MoE FFN's params as this rank's slices: each DTensor leaf
+    redistributed to its ``EXPERT_SPECS`` entry (after any leading period
+    axis) and made local; a plain tensor is taken as this rank's slice
+    already."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.launch.sharding import placements
+
+    out = {}
+    for k, spec in EXPERT_SPECS.items():
+        t = p[k]
+        if isinstance(t, DTensor):
+            spec = (None,) * (t.ndim - len(spec)) + spec
+            t = t.redistribute(mesh, placements(mesh, spec)).to_local()
+        out[k] = t
+    return out
+
+
+def _moe_apply_mesh(p: dict, cfg: ModelConfig, x: torch.Tensor, impl: str,
+                    mesh) -> tuple[torch.Tensor, torch.Tensor]:
+    """Expert-parallel-style shard-local dispatch on ``mesh`` (port of
+    ``_moe_apply_shardmap``, ``moe.py:104-135``). Each rank routes its
+    data shard of x over its slice of every expert's d_ff at the capacity
+    of its own token count; the only communication is one sum of its
+    (T_loc, d) output over the "model" group and the aux loss's mean over
+    every rank of the mesh.
+
+    DTensors are redistributed to this rank's share; plain tensors are
+    this rank's share already: for ``x`` its own rows (y comes back the
+    same way, or as a DTensor sharded over the data axes for a DTensor
+    ``x``), for ``p`` its expert slices (``expert_slices``). Only local
+    tensors reach the kernels. The collectives carry no gradient: this
+    path serves."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.launch.mesh import data_axes
+    from repro_torch.launch.sharding import placements
+
+    if torch.is_grad_enabled() and x.requires_grad:
+        raise NotImplementedError("the shard-local MoE carries no gradient")
+    dp = data_axes(mesh)
+    rows = placements(mesh, (dp if len(dp) > 1 else dp[0], None, None))
+    xl = x.redistribute(mesh, rows).to_local() if isinstance(x, DTensor) \
+        else x
+    y, aux = _moe_core(expert_slices(p, mesh), cfg, xl, impl)
+    dist.all_reduce(y, group=mesh.get_group("model"))
+    for name in mesh.mesh_dim_names:
+        dist.all_reduce(aux, group=mesh.get_group(name))
+    aux = aux / mesh.size()
+    if isinstance(x, DTensor):
+        y = DTensor.from_local(y, mesh, rows, run_check=False)
+    return y, aux

@@ -10,7 +10,14 @@ cross-attention onto a context ``ctx`` — image patches, or the encoder's
 output from ``encode`` — or a Mamba block), then, unless the FFN is
 ``none``, ``norm2`` and an MLP or a MoE FFN (``models/moe.py``), as
 jamba-1.5-large-398b's Mamba layers have. An unknown mixer or FFN raises
-``ValueError``. ``impl`` picks the kernels (``kernels/ops.py``)."""
+``ValueError``. ``impl`` picks the kernels (``kernels/ops.py``).
+
+Given a ``mesh`` (``launch/mesh.py``), the params' leaves may be DTensors
+(``launch/sharding.distribute``): every dense leaf is gathered whole on
+each rank, and each MoE FFN runs on the shard-local path
+(``moe.moe_apply``) over this rank's expert slices (``local_params``).
+The tokens, the context, the cache and the activations are this rank's
+own rows, as plain tensors. Without a mesh nothing of this runs."""
 
 from __future__ import annotations
 
@@ -55,7 +62,8 @@ def _kind(cfg: ModelConfig, j: int) -> tuple[str, str]:
 def _apply_layer(lp: dict, cfg: ModelConfig, x: torch.Tensor, mixer: str,
                  ffn: str, *, positions: torch.Tensor,
                  ctx: torch.Tensor | None, cache: dict | None,
-                 impl: str) -> tuple[torch.Tensor, dict, torch.Tensor | None]:
+                 impl: str, mesh=None
+                 ) -> tuple[torch.Tensor, dict, torch.Tensor | None]:
     """One residual layer: the mixer, then ``norm2`` and the FFN unless it
     is ``none``. Returns (x, state, MoE aux loss): the state is the
     prefill K/V or Mamba state when ``cache`` is None, else the decode
@@ -88,7 +96,7 @@ def _apply_layer(lp: dict, cfg: ModelConfig, x: torch.Tensor, mixer: str,
         return x, state, None
     h2 = rms_norm(x, lp["norm2"], cfg.norm_eps)
     if ffn == MOE:
-        f, aux = moe_lib.moe_apply(lp["ffn"], cfg, h2, impl=impl)
+        f, aux = moe_lib.moe_apply(lp["ffn"], cfg, h2, impl=impl, mesh=mesh)
         return x + f, state, aux
     if ffn == MLP:
         return x + mlp_apply(lp["ffn"], h2, cfg.act, impl=impl), state, None
@@ -119,6 +127,21 @@ def _period_slice(tree: dict, i: int) -> dict:
             for k, v in tree.items()}
 
 
+def local_params(params: dict, mesh) -> dict:
+    """``params`` as this rank's plain tensors on ``mesh``: each dense
+    DTensor leaf gathered whole (``full_tensor``), each MoE FFN (a dict
+    with a ``router``) as this rank's expert slices
+    (``moe.expert_slices``)."""
+    from torch.distributed.tensor import DTensor
+
+    def one(v):
+        if isinstance(v, dict):
+            return moe_lib.expert_slices(v, mesh) if "router" in v else \
+                {k: one(u) for k, u in v.items()}
+        return v.full_tensor() if isinstance(v, DTensor) else v
+    return one(params)
+
+
 def _lm_head(params: dict, cfg: ModelConfig, x: torch.Tensor,
              impl: str) -> torch.Tensor:
     if cfg.tie_embeddings:   # x @ embed.T, reading the table in place
@@ -132,8 +155,8 @@ def _lm_head(params: dict, cfg: ModelConfig, x: torch.Tensor,
 
 
 def forward_hidden(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
-                   ctx: torch.Tensor | None = None, impl: str = "auto"
-                   ) -> tuple[torch.Tensor, torch.Tensor]:
+                   ctx: torch.Tensor | None = None, impl: str = "auto",
+                   mesh=None) -> tuple[torch.Tensor, torch.Tensor]:
     """Teacher-forced full-sequence pass up to the final norm -> ((B, S,
     d_model) hidden states, the MoE aux loss summed over layers over
     max(1, MoE layers)): the reference's ``forward(..., return_hidden=
@@ -149,6 +172,8 @@ def forward_hidden(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     ``periods/`` may be given as the sequence of its period slices (the
     train step does, so that each period's gradient is a tensor of its
     own)."""
+    if mesh is not None:
+        params = local_params(params, mesh)
     B, S = tokens.shape
     x = embed_apply(params["embed"], tokens, cfg.embed_scale, cfg.d_model)
     positions = torch.arange(S, dtype=torch.int32, device=x.device)[None, :]
@@ -158,7 +183,7 @@ def forward_hidden(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
         for key, i, mixer, ffn in slots:
             x, _, a = _apply_layer(_layer_params(params, key, i), cfg, x,
                                    mixer, ffn, positions=positions, ctx=ctx,
-                                   cache=None, impl=impl)
+                                   cache=None, impl=impl, mesh=mesh)
             if a is not None:
                 aux = aux + a
         return x, aux
@@ -180,20 +205,22 @@ def forward_hidden(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
 
 
 def forward_with_aux(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
-                     ctx: torch.Tensor | None = None, impl: str = "auto"
-                     ) -> tuple[torch.Tensor, torch.Tensor]:
+                     ctx: torch.Tensor | None = None, impl: str = "auto",
+                     mesh=None) -> tuple[torch.Tensor, torch.Tensor]:
     """Teacher-forced full-sequence pass -> ((B, S, padded_vocab) logits,
     the MoE aux loss), as the reference's ``forward`` returns them."""
-    x, aux = forward_hidden(params, cfg, tokens, ctx, impl)
+    if mesh is not None:
+        params = local_params(params, mesh)
+    x, aux = forward_hidden(params, cfg, tokens, ctx, impl, mesh)
     return _lm_head(params, cfg, x, impl), aux
 
 
 def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
-            ctx: torch.Tensor | None = None, impl: str = "auto"
-            ) -> torch.Tensor:
+            ctx: torch.Tensor | None = None, impl: str = "auto",
+            mesh=None) -> torch.Tensor:
     """Teacher-forced full-sequence pass -> (B, S, padded_vocab) logits
     (``forward_with_aux`` without the aux loss)."""
-    return forward_with_aux(params, cfg, tokens, ctx, impl)[0]
+    return forward_with_aux(params, cfg, tokens, ctx, impl, mesh)[0]
 
 
 # ----------------------------------------------------------------- caches
@@ -268,11 +295,13 @@ def _kv_to_buffer(kv: dict, W: int) -> dict:
 
 def prefill_hidden(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                    ctx: torch.Tensor | None = None,
-                   cache_len: int | None = None, impl: str = "auto"
-                   ) -> tuple[torch.Tensor, dict]:
+                   cache_len: int | None = None, impl: str = "auto",
+                   mesh=None) -> tuple[torch.Tensor, dict]:
     """``prefill`` up to the final norm: (B,S,d_model) hidden states and
     the decode cache, so that a caller can run the LM head on the rows it
     needs."""
+    if mesh is not None:
+        params = local_params(params, mesh)
     B, S = tokens.shape
     CL = cache_len or S
     x = embed_apply(params["embed"], tokens, cfg.embed_scale, cfg.d_model)
@@ -281,7 +310,7 @@ def prefill_hidden(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     for key, i, mixer, ffn in _slots(cfg):
         x, state, _ = _apply_layer(_layer_params(params, key, i), cfg, x,
                                    mixer, ffn, positions=positions, ctx=ctx,
-                                   cache=None, impl=impl)
+                                   cache=None, impl=impl, mesh=mesh)
         bufs[(key, i)] = state if mixer in (MAMBA, CROSS) else \
             _kv_to_buffer(state, _buffer_width(cfg, mixer, CL))
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
@@ -291,10 +320,13 @@ def prefill_hidden(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
 
 def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
             ctx: torch.Tensor | None = None, cache_len: int | None = None,
-            impl: str = "auto") -> tuple[torch.Tensor, dict]:
+            impl: str = "auto", mesh=None) -> tuple[torch.Tensor, dict]:
     """Process a prompt, returning (logits, decode cache). Without
     ``cache_len`` every buffer is S wide, as in the reference."""
-    x, cache = prefill_hidden(params, cfg, tokens, ctx, cache_len, impl)
+    if mesh is not None:
+        params = local_params(params, mesh)
+    x, cache = prefill_hidden(params, cfg, tokens, ctx, cache_len, impl,
+                              mesh)
     return _lm_head(params, cfg, x, impl), cache
 
 
@@ -302,18 +334,21 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
 
 def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
                 cache: dict, ctx: torch.Tensor | None = None,
-                impl: str = "auto") -> tuple[torch.Tensor, dict]:
+                impl: str = "auto", mesh=None) -> tuple[torch.Tensor, dict]:
     """One greedy decode step. token: (B, 1) int32. Writes the token's K/V
     into ``cache``'s attention buffers and the new ``h`` and ``conv`` into
     its Mamba layers, all in place (the reference returns new arrays; the
     port saves the copy); the returned cache shares them and carries
     ``t + 1``. Cross-attention layers attend to the whole ``ctx``."""
+    if mesh is not None:
+        params = local_params(params, mesh)
     x = embed_apply(params["embed"], token, cfg.embed_scale, cfg.d_model)
     positions = cache["t"][:, None]                            # (B,1)
     for key, i, mixer, ffn in _slots(cfg):
         x, _, _ = _apply_layer(_layer_params(params, key, i), cfg, x, mixer,
                                ffn, positions=positions, ctx=ctx,
-                               cache=_layer_params(cache, key, i), impl=impl)
+                               cache=_layer_params(cache, key, i), impl=impl,
+                               mesh=mesh)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     new_cache = dict(cache, t=cache["t"] + 1)
     return _lm_head(params, cfg, x, impl), new_cache

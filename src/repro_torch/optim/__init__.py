@@ -1,5 +1,6 @@
-"""The port's optimizers (``repro.optim`` without ``compression``, which
-comes with ROADMAP.md Queue 1 item 11)."""
+"""The port's optimizers, with the names ``repro.optim`` exports. The
+int8 gradient compression is ``repro_torch.optim.compression``, which,
+as in the reference, the package does not export."""
 
 from repro_torch.optim.adamw import (
     OptConfig,
