@@ -205,11 +205,23 @@
    then one more run of each, mesh first, held to the same bits, so that
    the walls come in turns (resident, mesh, mesh, resident); and one
    token of each under cProfile (``host_hotspots``: its host time by
-   function). Then ``compressed_psum`` of a (49 155, 1 024) fp32 tensor over the
-   group must equal ``decompress(compress(x))`` with ``==``, and
+   function). Then the dry run (``launch/dryrun.py``, counted from the
+   placements; ``dryrun_check``): its per-rank bytes of params, the
+   prefill's cache and the prompts for that cell on the 1 x 1 mesh must
+   equal what the placed DTensors hold (each ``to_local()``'s nbytes)
+   with ``==``; its collective count there (none: every axis has one
+   rank) beside the port's 72 all_reduces a call; the roofline's
+   compute and memory terms (``launch/roofline.py``, one H100's
+   figures) beside the resident walls; and the whole sweep (every arch x
+   shape at 16x16 and 2x16x16, ``sweep_check``) on the host, timed, no
+   row in error. Then ``compressed_psum`` of a (49 155, 1 024) fp32
+   tensor over the group must equal ``decompress(compress(x))`` with
+   ``==``, and the tensors it hands to ``all_reduce`` are recorded: the
+   MAX of the fp32 scales and the SUM of int32 values (what crosses the
+   wire, more bytes than fp32; q's int8 stays on the rank). And
    ``make_production_mesh()`` must raise ``ValueError`` at world size 1.
-   The group is destroyed in a ``finally``; the phase's seconds go on the
-   ``cut:`` line.
+   The group is destroyed in a ``finally``; the phase's seconds, and the
+   dry run's check's, go on the ``cut:`` line.
 8. Training (after the serve phases, their memory freed):
    (a) the flash backward kernel (``flash_attention_bwd``) at BWD_CASES:
    granite-3-2b's microbatch (32:8, D 64, causal), gemma3-1b's local
@@ -2206,7 +2218,14 @@ def mesh_compare(cfg, params, toks, mesh) -> dict:
         hot_mesh = host_hotspots(lambda: serve.run_decode(
             cfg, dparams, tok, cache, 1, mesh=mesh))
     del cache
+
+    def held(tree):   # bytes this rank holds of a placed tree
+        return sum(x.to_local().nbytes for _, x in leaves(tree))
+
+    local_bytes = dict(params=held(dparams), cache=held(placed["cache"]),
+                       batch=mine.nbytes)
     return dict(mesh=sizes, fsdp=fsdp, place_params_ms=place_ms,
+                local_bytes=local_bytes,
                 host_token_resident=hot_res, host_token_mesh=hot_mesh,
                 place_cache_ms=placed["ms"],
                 resident=dict(prefill_ms=resident[4], decode_ms=resident[5],
@@ -2220,21 +2239,97 @@ def mesh_compare(cfg, params, toks, mesh) -> dict:
 def psum_check(x: torch.Tensor, group=None) -> dict:
     """``compressed_psum`` of ``x`` over a group of one rank: raises
     unless it equals ``decompress(compress(x))`` with ``==`` (the shared
-    scale is the rank's own)."""
+    scale is the rank's own). Records what crosses the wire: each tensor
+    the call hands to ``dist.all_reduce`` (its op, dtype and bytes), and
+    q's int8 bytes, which stay on the rank."""
+    import torch.distributed as dist
+
     from repro_torch.optim.compression import (compress, compressed_psum,
                                                decompress)
 
     q, scale = compress(x)
+    wire = []
+    all_reduce = dist.all_reduce
+
+    def recorded(t, op=dist.ReduceOp.SUM, group=None, async_op=False):
+        wire.append(dict(op=str(op).rsplit(".", 1)[-1],
+                         dtype=str(t.dtype).replace("torch.", ""),
+                         bytes=t.numel() * t.element_size()))
+        return all_reduce(t, op=op, group=group, async_op=async_op)
+
     _sync(x.device)
-    t0 = time.perf_counter()
-    got = compressed_psum(x, group)
-    _sync(x.device)
-    ms = (time.perf_counter() - t0) * 1e3
+    dist.all_reduce = recorded
+    try:
+        t0 = time.perf_counter()
+        got = compressed_psum(x, group)
+        _sync(x.device)
+        ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        dist.all_reduce = all_reduce
     if not torch.equal(got, decompress(q, scale, tuple(x.shape), x.dtype)):
         raise AssertionError("mesh: compressed_psum over one rank is not "
                              "decompress(compress(x))")
+    want = [("MAX", "float32", scale.numel() * 4),
+            ("SUM", "int32", q.numel() * 4)]
+    if [(w["op"], w["dtype"], w["bytes"]) for w in wire] != want:
+        raise AssertionError(f"mesh: compressed_psum's all-reduces {wire}, "
+                             f"not {want}")
     return dict(shape=list(x.shape), ms=ms, fp32_bytes=x.numel() * 4,
-                payload_bytes=q.numel() * q.element_size() + scale.numel() * 4)
+                int8_bytes=q.numel() * q.element_size(), wire=wire,
+                wire_bytes=sum(w["bytes"] for w in wire))
+
+
+def dryrun_check(cfg, out: dict, batch: int, prompt: int) -> dict:
+    """The dry run (``launch/dryrun.py``, counted from the placements) and
+    the roofline (``launch/roofline.py``) against ``mesh_compare``'s
+    ``out``: the dry run's per-rank bytes of params, the prefill's cache
+    and the prompts for its cell (a prefill of ``batch`` x ``prompt`` on
+    its mesh) must equal what the placed DTensors hold (each
+    ``to_local()``'s nbytes) with ``==``; its collectives on that mesh
+    are counted; the roofline's terms on one card's figures for that
+    prefill and for a token over its cache."""
+    from repro_torch.launch import dryrun, roofline
+
+    t0 = time.perf_counter()
+    sizes = out["mesh"]
+    cells = {kind: dict(kind=kind, seq_len=prompt, global_batch=batch)
+             for kind in ("prefill", "decode")}
+    rows = {k: dryrun.count_cell(cfg, sh, sizes) for k, sh in cells.items()}
+    want = {k: rows["prefill"]["bytes_per_rank"][k]
+            for k in ("params", "cache", "batch")}
+    if want != out["local_bytes"]:
+        raise AssertionError(f"mesh: the dry run's per-rank bytes {want} "
+                             f"differ from the placed DTensors' "
+                             f"{out['local_bytes']}")
+    colls = {k: sum(v["count"] for n, v in r["collectives"].items()
+                    if n in dryrun.COLLECTIVE_FACTOR)
+             for k, r in rows.items()}
+    terms = {k: roofline.roofline_terms(dict(r, arch=cfg, shape=cells[k]),
+                                        r["ranks"])
+             for k, r in rows.items()}
+    return dict(bytes=want, collectives=colls,
+                roofline={k: {n: t[n] for n in ("t_compute_s", "t_memory_s",
+                                                 "t_collective_s",
+                                                 "dominant")}
+                          for k, t in terms.items()},
+                seconds=time.perf_counter() - t0)
+
+
+def sweep_check() -> dict:
+    """The dry run's whole sweep (every arch x shape at 16x16 and
+    2x16x16) on the host, timed; raises if a row is an error."""
+    from repro_torch.launch import dryrun
+
+    t0 = time.perf_counter()
+    rows = list(dryrun.sweep())
+    seconds = time.perf_counter() - t0
+    status = [r["status"] for r in rows]
+    if "error" in status:
+        bad = [(r["arch"], r["shape"], r["mesh"], r["error"])
+               for r in rows if r["status"] == "error"]
+        raise AssertionError(f"dry-run rows in error: {bad}")
+    return dict(rows=len(rows), ok=status.count("ok"),
+                skipped=status.count("skipped"), seconds=seconds)
 
 
 def mesh_phase() -> dict:
@@ -2246,7 +2341,7 @@ def mesh_phase() -> dict:
 
     from repro_torch.bridge import init_params, leaf_sizes
     from repro_torch.configs import get_config
-    from repro_torch.launch import serve
+    from repro_torch.launch import roofline, serve
     from repro_torch.launch.mesh import (close_mesh, make_host_mesh,
                                          make_production_mesh)
 
@@ -2284,6 +2379,33 @@ def mesh_phase() -> dict:
               f"(y over 'model', aux over each mesh dim)", flush=True)
         print(f"mesh {MOE_ARCH}: first request continuation "
               f"{out['continuation']}", flush=True)
+        dry = dryrun_check(cfg, out, BATCH, PROMPT)
+        res = [(pre, dec / MESH_DECODE) for tag, pre, dec in out["turns"]
+               if tag == "resident"]
+        rl = dry["roofline"]
+        print(f"mesh dry run {MOE_ARCH}, prefill {BATCH}x{PROMPT} on the "
+              f"{out['mesh']} mesh: per-rank bytes == the placed DTensors' "
+              f"(params {dry['bytes']['params']}, cache "
+              f"{dry['bytes']['cache']}, batch {dry['bytes']['batch']}); "
+              f"collectives counted: {dry['collectives']['prefill']} a "
+              f"prefill, {dry['collectives']['decode']} a token (every axis "
+              f"one rank), against the {out['all_reduces_a_call']} "
+              f"all_reduces a call the port's mesh path issues", flush=True)
+        print(f"mesh roofline on one card's figures "
+              f"({roofline.PEAK_FLOPS / 1e12:.0f} TFLOP/s bf16, "
+              f"{roofline.HBM_BW / 1e12:.2f} TB/s): prefill "
+              f"compute {rl['prefill']['t_compute_s'] * 1e3:.3f} ms, memory "
+              f"{rl['prefill']['t_memory_s'] * 1e3:.3f} ms; a token compute "
+              f"{rl['decode']['t_compute_s'] * 1e3:.3f} ms, memory "
+              f"{rl['decode']['t_memory_s'] * 1e3:.3f} ms; measured resident "
+              + ", ".join(f"prefill {p:.2f} ms and {t:.2f} ms a token"
+                          for p, t in res), flush=True)
+        sw = dry["sweep"] = sweep_check()
+        dry["seconds"] += sw["seconds"]
+        print(f"mesh dry run sweep at 16x16 and 2x16x16: {sw['rows']} rows "
+              f"({sw['ok']} ok, {sw['skipped']} skipped, none in error) in "
+              f"{sw['seconds']:.2f} s on the card's host; the check "
+              f"{dry['seconds']:.2f} s", flush=True)
         for tag in ("resident", "mesh"):
             hot = out[f"host_token_{tag}"]
             print(f"mesh {MOE_ARCH}: one {tag} token under cProfile "
@@ -2297,10 +2419,13 @@ def mesh_phase() -> dict:
         psum = psum_check(torch.randn((cfg.vocab, cfg.d_model), generator=g,
                                       device="cuda"))
         print(f"mesh compressed_psum {tuple(psum['shape'])} fp32: equals "
-              f"decompress(compress(x)); int8 payload "
-              f"{psum['payload_bytes']} bytes (q and fp32 scales) against "
-              f"{psum['fp32_bytes']} of fp32; {psum['ms']:.2f} ms "
-              f"host-timed", flush=True)
+              f"decompress(compress(x)); on the wire "
+              + " + ".join(f"{w['op']} all_reduce of {w['dtype']} "
+                           f"{w['bytes']}" for w in psum["wire"])
+              + f" = {psum['wire_bytes']} bytes against "
+              f"{psum['fp32_bytes']} of fp32 (q's int8 {psum['int8_bytes']} "
+              f"stays on the rank); {psum['ms']:.2f} ms host-timed",
+              flush=True)
         try:
             make_production_mesh()
         except ValueError as e:
@@ -2315,9 +2440,9 @@ def mesh_phase() -> dict:
         dist.destroy_process_group()
     free_memory()
     seconds = time.perf_counter() - t0
-    print(f"mesh phase done in {seconds:.1f} s", flush=True)
+    print(f"mesh phase done in {seconds:.1f} s on {smi()}", flush=True)
     return dict(out, arch=MOE_ARCH, weight_bytes=weight_bytes, flash=flash,
-                decode_tokens=MESH_DECODE, psum=psum,
+                decode_tokens=MESH_DECODE, psum=psum, dryrun=dry,
                 production_refused=refused, seconds=seconds)
 
 
@@ -4458,7 +4583,8 @@ def cut_seconds(jamba: dict, new: dict, trained: dict, streamed: dict,
                           plain_once_at_least_s=PLAIN_TIMING["saved_s"],
                           launcher_steps_est_s=launcher_s),
                plain_timing=dict(PLAIN_TIMING),
-               mesh_phase_s=meshed["seconds"])
+               mesh_phase_s=meshed["seconds"],
+               dryrun_check_s=meshed["dryrun"]["seconds"])
     added, saved = sum(out["added"].values()), sum(out["saved"].values())
     print(f"cut: jamba's serving added {added:.1f} s (its phase "
           f"{jamba['seconds']:.1f}, mixtral-8x7b's 32 layers' shapes "
@@ -4468,7 +4594,8 @@ def cut_seconds(jamba: dict, new: dict, trained: dict, streamed: dict,
           f"{PLAIN_TIMING['cases']} plain versions timed once (in "
           f"{PLAIN_TIMING['seconds']:.1f} s) at least "
           f"{PLAIN_TIMING['saved_s']:.1f}, the launcher's steps about "
-          f"{launcher_s:.1f}; the mesh phase added {meshed['seconds']:.1f} s",
+          f"{launcher_s:.1f}; the mesh phase added {meshed['seconds']:.1f} s "
+          f"(the dry run's check {meshed['dryrun']['seconds']:.1f} s of it)",
           flush=True)
     return out
 

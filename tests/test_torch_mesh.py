@@ -353,7 +353,10 @@ def test_serving_on_the_host_mesh_equals_the_resident_path(arch):
     arch's settings: on for jamba, off for the others), the prompts by
     ``batch_spec``, the prefill's cache by ``cache_specs``, the MoE on
     the shard-local path; it raises unless logits and tokens are
-    bit-equal to the resident path's and the launch counts equal."""
+    bit-equal to the resident path's and the launch counts equal. Then
+    ``chip_smoke.dryrun_check``: the dry run's per-rank bytes of params,
+    cache and prompts for that cell equal what the placed DTensors hold,
+    and it counts no collective on one rank."""
     smoke = _smoke()
     cfg = get_reduced(arch)
     params = bridge.init_params(cfg, seed=0, device="cpu")
@@ -365,6 +368,13 @@ def test_serving_on_the_host_mesh_equals_the_resident_path(arch):
         tmesh.close_mesh(m)
     assert out["fsdp"] == settings_for(arch).fsdp_serve
     assert len(out["continuation"]) == smoke.MESH_DECODE + 1
+    dry = smoke.dryrun_check(cfg, out, 4, 16)
+    assert dry["bytes"] == out["local_bytes"]
+    assert out["local_bytes"]["params"] == sum(
+        b for _, b in bridge.leaf_sizes(params))
+    assert out["local_bytes"]["batch"] == toks.nbytes
+    assert dry["collectives"] == {"prefill": 0, "decode": 0}
+    assert dry["roofline"]["prefill"]["t_compute_s"] > 0
 
 
 @pytest.mark.parametrize("arch", MOE_ARCHS)
@@ -668,15 +678,21 @@ def test_compressed_psum_equals_a_numpy_replay_of_the_reference(ranks):
 def test_compressed_psum_on_one_rank_is_the_round_trip():
     """At world size 1 the shared scale is the rank's own, so the result
     is ``decompress(compress(x))`` bit for bit: ``chip_smoke.psum_check``,
-    the card's check, on the CPU."""
+    the card's check, on the CPU. What crosses the wire is two
+    all-reduces: the MAX of the 20 fp32 scales and the SUM of the padded
+    5 120 values in int32, more bytes than the fp32 tensor's 20 000; q's
+    int8 bytes stay on the rank."""
     m = tmesh.make_host_mesh("cpu")
     try:
         x = torch.from_numpy(_grads(5000, 2, 3.0)).reshape(50, 100)
         out = _smoke().psum_check(x)
     finally:
         tmesh.close_mesh(m)
-    assert out["payload_bytes"] == 5120 + 20 * 4
-    assert out["fp32_bytes"] == 20000
+    assert out["wire"] == [
+        {"op": "MAX", "dtype": "float32", "bytes": 20 * 4},
+        {"op": "SUM", "dtype": "int32", "bytes": 5120 * 4}]
+    assert out["wire_bytes"] == 20560 > out["fp32_bytes"] == 20000
+    assert out["int8_bytes"] == 5120
 
 
 def test_serving_on_four_ranks_gives_each_rank_its_rows(ranks):
